@@ -17,15 +17,35 @@ Phases (any failure exits non-zero):
      per-key-class commutativity, 0.2 s, K = 16 epoch windows -- on the
      card with the launch counts reset just before and read just after,
      then the same run on the CPU (plain versions), which must agree bit
-     for bit.
+     for bit;
+  5. the flash-attention kernel against its plain version on the card at
+     tinyllama-1.1b's prefill shape (B 2, S = Sk = 4096, Hq 32, Hk 4,
+     D 64, causal) in bf16 (tolerance 2e-2) and float32 (2e-5) -- the
+     reference's kernel-test tolerances -- and at small shapes covering
+     non-causal, window, q offset, ragged S and D = 128; timed with CUDA
+     events beside the plain version and `scaled_dot_product_attention`
+     (GQA, causal), and one call at prefill_32k's per-sequence shape
+     (B 1, S 32768; kernel and SDPA only: the plain version's scores do
+     not fit);
+  6. the LM path at tinyllama-1.1b's full width (22 layers, d 2048,
+     random weights from seed 0): `make_prefill` on B = 2 prompts of 4096
+     tokens with the launch counts reset just before and read just after
+     (22 launches of flash_attention per call); the same prefill at B 1,
+     S 2048 through the kernel and through its plain version, whose last
+     logits must agree within 2^-5 of the largest logit; the
+     continuous-batching `ServingEngine` (4 slots, max_seq 256) answering
+     4 prompts of 32 tokens with 16 new tokens each; and a one-slot engine
+     whose decode logits after admitting a prompt must agree with
+     `make_prefill`'s last logits for it, within the same tolerance.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX or `repro`.
 
-``python3 chip_smoke.py --profile`` instead runs phases 1-2 and then the
+``python3 chip_smoke.py --profile`` instead runs phases 1-2, then the
 card half of phase 4 twice -- once to warm, once under `torch.profiler`
 (device time by kernel, device busy share of the wall time) and cProfile
-(where the host time goes). Profiling slows the run; the plain run's wall
-time is the one phase 4 prints.
+(where the host time goes) -- and then one prefill and a few serving ticks
+of phase 6 under `torch.profiler`. Profiling slows the run; the plain
+run's wall times are the ones phases 4 and 6 print.
 """
 from __future__ import annotations
 
@@ -37,6 +57,16 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
+# H100 SXM peaks by input type (NVIDIA data sheet): dense bf16 on the
+# tensor cores, float32 outside them
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:42
+# kernel vs plain attention through the LM: bf16 keeps 8 significant bits;
+# the kernel and the plain version round each layer's attention output to
+# bf16 from float32 sums taken in different orders, so a unit in the last
+# place flips here and there and the flips travel through 22 residual
+# layers: 2^-5 of the largest logit (four units at the top of its binade)
+LM_REL_TOL = 2.0 ** -5
 SIZES = (10_000, 100_000, 1_000_000)
 MAIN_N_PAD = 16_384             # pow2 bucket of ~1e4 requests per epoch
 
@@ -145,6 +175,218 @@ def check_kernels(dev, n: int, n_pad: int | None = None) -> dict:
     }
 
 
+def attention_inputs(dev, B, S, Sk, Hq, Hk, D, dtype, seed=0):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, S, Hq, D), (B, Sk, Hk, D), (B, Sk, Hk, D)))
+
+
+def attention_bound_ms(B, S, Sk, Hq, Hk, D, dtype, causal, window=None,
+                       q_offset=0) -> tuple[float, str]:
+    """Least time on the card: FLOPs of the visible pairs at the peak for
+    the inputs' type, or q, k, v read once and the output written once at
+    the HBM rate, whichever is longer."""
+    from repro_torch.kernels.flash_attention import attention_flops
+
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * D * (2 * B * S * Hq + 2 * B * Sk * Hk)
+    flops = attention_flops(B, S, Sk, Hq, D, causal=causal, window=window,
+                            q_offset=q_offset)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_call(q, k, v, causal: bool):
+    """One `scaled_dot_product_attention` call on the same inputs, in its
+    [B, H, S, D] layout (the yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
+                    window=None, q_offset=0, timed=False) -> dict:
+    """flash_attention's kernel == its plain version within the tolerance
+    of its dtype; with ``timed``, kernel, plain and SDPA times in ms."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    q, k, v = attention_inputs(dev, B, S, Sk, Hq, Hk, D, dt, seed=S + D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max().cpu())
+    shape = (f"B{B} S{S} Sk{Sk} Hq{Hq} Hk{Hk} D{D} {dtype} causal={causal}"
+             f" window={window} q_offset={q_offset}")
+    if not (err <= FA_TOL[dtype] and torch.isfinite(got).all()):
+        raise RuntimeError(f"flash_attention disagrees with its plain "
+                           f"version at {shape}: max abs err {err}")
+    del want
+    res = {"shape": shape, "max_abs_err": err}
+    if timed:
+        bound, by = attention_bound_ms(B, S, Sk, Hq, Hk, D, dtype, causal,
+                                       window, q_offset)
+        lib = None
+        if window is None and q_offset == 0 and S == Sk:
+            lib = time_ms(sdpa_call(q, k, v, causal))
+        res.update(ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw)),
+                   plain_ms=time_ms(
+                       lambda: fa.flash_attention_plain(q, k, v, **kw), 5),
+                   bound_ms=bound, bound_by=by, library_ms=lib)
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_prefill_32k(dev) -> dict:
+    """The kernel's and SDPA's times at prefill_32k's per-sequence shape
+    (B 1, S 32768, tinyllama heads, bf16, causal; mean of 3 calls after a
+    warm one), and the kernel's last 256 rows against the plain version."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, Hq, Hk, D = 1, 32768, 32, 4, 64
+    q, k, v = attention_inputs(dev, B, S, S, Hq, Hk, D, torch.bfloat16)
+    bound, by = attention_bound_ms(B, S, S, Hq, Hk, D, "bfloat16", True)
+    out = {"shape": f"B{B} S{S} Hq{Hq} Hk{Hk} D{D} bfloat16 causal",
+           "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), 3),
+           "library_ms": time_ms(sdpa_call(q, k, v, True), 3),
+           "bound_ms": bound, "bound_by": by}
+    got = fa.flash_attention_cuda(q[:, -256:].contiguous(), k, v,
+                                  q_offset=S - 256)
+    tail = fa.flash_attention_plain(q[:, -256:], k, v, q_offset=S - 256)
+    out["tail_max_abs_err"] = float((got.float() - tail.float()).abs()
+                                    .max().cpu())
+    if out["tail_max_abs_err"] > FA_TOL["bfloat16"]:
+        raise RuntimeError(f"flash_attention's last 256 rows at S 32768 "
+                           f"disagree: {out['tail_max_abs_err']}")
+    return out
+
+
+def drive_lm_path(dev) -> dict:
+    """Phase 6: tinyllama-1.1b at full width on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dom_admit as admit_mod
+    from repro_torch.kernels import dom_release as release_mod
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import (count_params, init_params,
+                                          make_prefill)
+    from repro_torch.serving.engine import GenRequest, ServingEngine
+
+    cfg = get_config("tinyllama-1.1b")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out = {"params": count_params(cfg),
+           "init_s": time.perf_counter() - t0}
+    prefill = make_prefill(cfg)
+
+    # the main path: B 2 x S 4096 prefill, counts reset just before
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)),
+                             device=dev)
+    prefill(params, {"tokens": tokens})              # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    admit_mod.launches = release_mod.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    logits, hidden = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attention": fa.launches,
+                       "dom_admit": admit_mod.launches,
+                       "dom_release": release_mod.launches}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if fa.launches != cfg.n_layers:
+        raise RuntimeError(f"prefill launched flash_attention {fa.launches} "
+                           f"times, not once per layer ({cfg.n_layers})")
+    if not (logits.shape == (2, cfg.vocab) and hidden.shape ==
+            (2, 4096, cfg.d_model) and torch.isfinite(logits).all()
+            and torch.isfinite(hidden).all()):
+        raise RuntimeError("prefill output has the wrong shape or is not "
+                           "finite")
+    del logits, hidden
+
+    # kernel vs plain attention through the whole model (B 1, S 2048)
+    short = tokens[:1, :2048]
+    kern, _ = prefill(params, {"tokens": short})
+    saved = fa.flash_attention_cuda
+    fa.flash_attention_cuda = fa.flash_attention_plain
+    try:
+        plain, _ = prefill(params, {"tokens": short})
+    finally:
+        fa.flash_attention_cuda = saved
+    scale = float(plain.float().abs().max().cpu())
+    err = float((kern.float() - plain.float()).abs().max().cpu())
+    out["prefill_vs_plain"] = {"max_abs_err": err, "max_abs_logit": scale,
+                               "tol": scale * LM_REL_TOL}
+    if not err <= scale * LM_REL_TOL:
+        raise RuntimeError(f"prefill through the kernel disagrees with the "
+                           f"plain-attention prefill: {err} > "
+                           f"{scale * LM_REL_TOL}")
+
+    # the continuous-batching server: 4 prompts of 32 tokens, 16 new each
+    prompts = [rng.integers(0, cfg.vocab, 32).tolist() for _ in range(4)]
+    engine = ServingEngine(cfg, params, n_slots=4, max_seq=256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        if not engine.admit(GenRequest(seq_id=i, prompt=prompt, max_new=16)):
+            raise RuntimeError(f"the engine refused prompt {i}")
+    t_admit = time.perf_counter() - t0
+    produced = 0
+    while any(not r.done for r in engine.requests.values()):
+        produced += engine.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    answers = [engine.requests[i].out for i in range(4)]
+    if not all(len(a) == 16 and all(0 <= t < cfg.vocab for t in a)
+               for a in answers):
+        raise RuntimeError(f"the engine's answers are malformed: {answers}")
+    out["serve"] = {"wall_s": wall, "admit_s": t_admit,
+                    "decode_steps": 4 * 32 + produced, "tokens": produced,
+                    "tokens_per_s": produced / wall,
+                    "decode_tokens_per_s": produced / (wall - t_admit),
+                    "answers": answers}
+
+    # a one-slot engine's decode logits after admitting prompt 0 ==
+    # make_prefill's last logits for it (one slot: no cache overwrite)
+    one = ServingEngine(cfg, params, n_slots=1, max_seq=256)
+    seen = []
+    decode = one.decode
+
+    def recording(*args):
+        step_logits, cache = decode(*args)
+        seen.append(step_logits)
+        return step_logits, cache
+
+    one.decode = recording
+    one.admit(GenRequest(seq_id=0, prompt=prompts[0], max_new=1))
+    last, _ = prefill(params, {"tokens": torch.as_tensor([prompts[0]],
+                                                         device=dev)})
+    scale = float(last.float().abs().max().cpu())
+    err = float((seen[-1][0].float() - last[0].float()).abs().max().cpu())
+    out["decode_vs_prefill"] = {"max_abs_err": err, "max_abs_logit": scale,
+                                "tol": scale * LM_REL_TOL}
+    if not err <= scale * LM_REL_TOL:
+        raise RuntimeError(f"one-slot decode logits disagree with "
+                           f"make_prefill's: {err} > {scale * LM_REL_TOL}")
+    return out
+
+
 def drive_main_path(device: str, rate: float, duration: float):
     from repro_torch.core import VectorizedConfig, make_cluster
     from repro_torch.sim.workload import Workload, WorkloadDriver
@@ -194,11 +436,55 @@ def profile_main_path(rate: float, duration: float) -> None:
     print(out.getvalue())
 
 
+def profile_lm_path(dev) -> None:
+    """Where the LM path's card time goes: one B 2 x S 4096 prefill and
+    eight decode steps of a 4-slot engine, each under torch.profiler after
+    a warm run (device time by kernel, device busy share of the wall)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, make_prefill
+    from repro_torch.serving.engine import GenRequest, ServingEngine
+
+    cfg = get_config("tinyllama-1.1b")
+    rng = np.random.default_rng(0)
+    params = init_params(cfg, seed=0, device=dev)
+    prefill = make_prefill(cfg)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)),
+                             device=dev)
+    engine = ServingEngine(cfg, params, n_slots=4, max_seq=256)
+    for i in range(4):
+        engine.admit(GenRequest(seq_id=i, max_new=64,
+                                prompt=rng.integers(0, cfg.vocab, 8).tolist()))
+    runs = (("prefill B2 x S4096", lambda: prefill(params, {"tokens": tokens})),
+            ("2 decode ticks x 4 slots (8 decode steps)",
+             lambda: [engine.tick() for _ in range(2)]))
+    for label, fn in runs:
+        fn()                                          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        busy_us = sum(e.self_device_time_total for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"profiled {label}: wall {wall * 1e3:.2f} ms (profiler on), "
+              f"device kernels {busy_us / 1e3:.2f} ms, busy share "
+              f"{busy_us / 1e6 / wall:.3f}")
+        print(events.table(sort_by="self_device_time_total", row_limit=15))
+        print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile the card run of the main path instead "
-                             "of the smoke phases 3-4")
+                        help="profile the card runs of the main paths "
+                             "instead of the smoke phases 3-6")
     args = parser.parse_args()
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch").is_dir():
@@ -236,6 +522,7 @@ def main() -> int:
     rate, duration = 1e6, 0.2
     if args.profile:
         profile_main_path(rate, duration)
+        profile_lm_path(dev)
         return 0
 
     # -- 3. kernels vs plain versions ------------------------------------------
@@ -302,6 +589,51 @@ def main() -> int:
     print("card run == CPU run, bit for bit (summary, latencies, commit "
           "trace, replica log)")
 
+    # -- 5. flash attention vs its plain version ---------------------------
+    print("flash_attention (kernel vs plain on the card):")
+    fa_main = {}
+    for dtype in ("bfloat16", "float32"):
+        r = check_attention(dev, 2, 4096, 4096, 32, 4, 64, dtype, timed=True)
+        fa_main[dtype] = r
+        print(f"  {r['shape']}: err {r['max_abs_err']:.3g}, "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), sdpa "
+              f"{r['library_ms']:.4f} ms")
+    for dtype in ("bfloat16", "float32"):
+        for B, S, Sk, Hq, Hk, D, causal, window, q_offset in (
+                (2, 1000, 1000, 32, 4, 64, False, None, 0),
+                (1, 777, 777, 32, 4, 64, True, 256, 0),
+                (2, 333, 333, 16, 2, 128, True, None, 0),
+                (1, 100, 1000, 8, 1, 128, False, 64, 900),
+                (1, 37, 2049, 32, 4, 64, True, None, 2012)):
+            r = check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal,
+                                window, q_offset)
+            print(f"  {r['shape']}: err {r['max_abs_err']:.3g}")
+    p32k = time_prefill_32k(dev)
+    print(f"  prefill_32k {p32k['shape']}: {p32k['ms']:.3f} ms, sdpa "
+          f"{p32k['library_ms']:.3f} ms, bound {p32k['bound_ms']:.3f} ms "
+          f"({p32k['bound_by']}), last 256 rows err "
+          f"{p32k['tail_max_abs_err']:.3g}")
+
+    # -- 6. the LM path at full width ----------------------------------------
+    lm = drive_lm_path(dev)
+    print(f"tinyllama-1.1b ({lm['params']} parameters, init "
+          f"{lm['init_s']:.2f} s): prefill B2 x S4096 {lm['prefill_s']:.4f} s "
+          f"({2 * 4096 / lm['prefill_s']:.0f} tokens/s), launches "
+          f"{json.dumps(lm['launches'])}, peak {lm['peak_gb']:.2f} GB")
+    pv, dv, sv = lm["prefill_vs_plain"], lm["decode_vs_prefill"], lm["serve"]
+    print(f"  prefill B1 x S2048, kernel vs plain attention: last logits "
+          f"max abs err {pv['max_abs_err']:.4g} (largest logit "
+          f"{pv['max_abs_logit']:.4g}, tolerance {pv['tol']:.4g})")
+    print(f"  ServingEngine(n_slots=4, max_seq=256): 4 prompts x 32 tokens, "
+          f"{sv['tokens']} new tokens in {sv['wall_s']:.3f} s "
+          f"({sv['tokens_per_s']:.2f} tokens/s; {sv['decode_steps']} decode "
+          f"steps, admission {sv['admit_s']:.3f} s, decode ticks "
+          f"{sv['decode_tokens_per_s']:.2f} tokens/s); first answer "
+          f"{sv['answers'][0]}")
+    print(f"  one-slot decode after admission vs make_prefill: last logits "
+          f"max abs err {dv['max_abs_err']:.4g} (tolerance {dv['tol']:.4g})")
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -316,6 +648,20 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
             "n": main_shape["n"], "R": main_shape["R"]})
+    r = fa_main["bfloat16"]
+    record["kernels"].append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": lm["launches"]["flash_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"],
+        "float32": {k: fa_main["float32"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "prefill_32k": {k: p32k[k] for k in (
+            "ms", "library_ms", "bound_ms")}})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dom_release", "dom_admit")
+SOURCES = ("dom_release", "dom_admit", "flash_attention")
 TILE = 2048     # elements per tile block, `TILE` in csrc/common.cuh
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -98,8 +98,8 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        lib.dom_error_string.argtypes = [ctypes.c_int]
-        lib.dom_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
 
@@ -107,7 +107,7 @@ def library(name: str) -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if code != 0:
-        msg = lib.dom_error_string(code).decode()
+        msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({code})")
 
 

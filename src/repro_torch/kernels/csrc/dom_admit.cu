@@ -165,7 +165,7 @@ __global__ void admit_decide(const uint64_t* __restrict__ keys,
 
 extern "C" {
 
-const char* dom_error_string(int code) {
+const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

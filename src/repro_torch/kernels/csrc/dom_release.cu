@@ -52,7 +52,7 @@ __global__ void release_finalize(const uint32_t* __restrict__ sorted_ids,
 
 extern "C" {
 
-const char* dom_error_string(int code) {
+const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,0 +1,161 @@
+"""Forward flash attention: kernel, plain version, wrapper.
+
+Port of `repro/kernels/flash_attention.py` (the Pallas kernel
+`flash_attention_pallas`, body `_fa_kernel`). q [B, S, Hq, D] attends
+k, v [B, Sk, Hk, D]; query head h reads KV head h // (Hq / Hk) (GQA).
+q is scaled by 1/sqrt(D) in float32, scores, the running max and sum and
+P.V accumulate in float32, masked scores are -1e30 and contribute p = 0,
+so a row with no visible key comes out 0; the output is
+acc / max(l, 1e-30) in q's dtype. Query position i sits at i + q_offset;
+key positions at or beyond Sk do not exist. Masks: causal (key <= query)
+and a sliding window (query - key < window).
+
+The kernel (``csrc/flash_attention.cu``) runs one block per (batch, query
+head, 64-row query tile) and walks only the KV tiles of the causal/window
+band. Its bound on the H100 is compute: 4 B Hq S Sk D FLOPs (about half of
+that when causal) at 989 TFLOP/s bf16 dense; this first version does its
+products with scalar float32 FMAs (67 TFLOP/s peak).
+
+The plain version is the dense O(S Sk) computation of the same function
+(float32 scores [B, Hk, G, S, Sk]). The wrapper dispatches on the
+tensor's device: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel (or raises).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launches of the CUDA kernel through `flash_attention` (counted per call).
+launches = 0
+
+
+def attention_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
+                   q_offset: int, device) -> torch.Tensor:
+    """[sq, sk] bool: which key each query position sees."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Dense attention with the kernel's arithmetic (its oracle)."""
+    B, S, Hq, D = q.shape
+    _, Sk, Hk, _ = k.shape
+    G = Hq // Hk
+    qh = q.float().reshape(B, S, Hk, G, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float())
+    mask = attention_mask(S, Sk, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)                                     # [B, Hk, G, S]
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, S, H, D]")
+    B, _, Hq, D = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} in batch or head dim")
+    if k.shape[2] == 0 or Hq % k.shape[2] != 0:
+        raise ValueError(f"query heads {Hq} are not a multiple of KV heads "
+                         f"{k.shape[2]}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k, v must share one dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v are on different devices")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    global launches
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_cuda needs CUDA tensors")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
+                        f"not {q.dtype}")
+    D = q.shape[3]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, "
+                         f"not {D}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda needs contiguous, 16-byte "
+                         "aligned q, k, v")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, not {window}")
+    B, S, Hq, _ = q.shape
+    _, Sk, Hk, _ = k.shape
+    out = torch.empty_like(q)
+    if B * S * Hq == 0:
+        return out
+    lib = build.library("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              B, S, Sk, Hq, Hk, D, DTYPES[q.dtype], int(causal),
+              0 if window is None else int(window), int(q_offset),
+              1.0 / math.sqrt(D), stream)
+    build.check(lib, "flash_attention", code)
+    launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention; the plain version on CPU, the kernel on CUDA."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+
+def attention_flops(B: int, S: int, Sk: int, Hq: int, D: int, *,
+                    causal: bool, window: Optional[int] = None,
+                    q_offset: int = 0) -> int:
+    """FLOPs the visible (query, key) pairs need: 4 D each (QK^T and P.V)."""
+    pairs = 0
+    for i in range(S):
+        pos = i + q_offset
+        hi = min(pos + 1, Sk) if causal else Sk
+        lo = max(pos - window + 1, 0) if window is not None else 0
+        pairs += max(hi - lo, 0)
+    return 4 * B * Hq * D * pairs
+
+
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
+           "attention_mask", "attention_flops", "NEG_INF"]

@@ -1,6 +1,8 @@
-"""DOM entry points over the CUDA kernels and their plain versions.
+"""Entry points over the CUDA kernels and their plain versions.
 
-Port of the DOM half of `repro/kernels/ops.py`. The tensor forms
+Port of `repro/kernels/ops.py` (attention and the DOM half). `attention`
+is the dispatch the model's prefill calls: a CPU tensor runs the plain
+version, a CUDA tensor launches the flash-attention kernel. The DOM tensor forms
 (`dom_admit_device`, `dom_deadline_order_device`; `repro`'s ``*_traced``
 forms) take and return tensors on the caller's device and are what the
 fused epoch body calls: a CPU tensor runs the plain version, a CUDA tensor
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.kernels.dom_admit import dom_admit as _admit
 from repro_torch.kernels.dom_release import dom_release
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def resolve_device(device) -> torch.device:
@@ -25,6 +28,13 @@ def resolve_device(device) -> torch.device:
                            "available; pass device='cpu' to run the plain "
                            "versions on the CPU")
     return dev
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window=None, q_offset: int = 0):
+    """[B, S, Hq, D] x [B, Sk, Hk, D]^2 -> [B, S, Hq, D] on q's device."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
 
 
 # Early-buffer admission [N], [N, R] -> [N, R] bool on the tensors' device.
@@ -61,5 +71,5 @@ def dom_deadline_order(deadlines, *, device="cuda") -> np.ndarray:
     return dom_deadline_order_device(dt).cpu().numpy()
 
 
-__all__ = ["resolve_device", "dom_admit", "dom_admit_device", "dom_release",
+__all__ = ["resolve_device", "attention", "dom_admit", "dom_admit_device", "dom_release",
            "dom_deadline_order", "dom_deadline_order_device"]

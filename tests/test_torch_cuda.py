@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-card runs of the cluster against CPU runs, bit for bit.
+"""The port on the card: each CUDA kernel against its plain version, card
+runs of the cluster against CPU runs, bit for bit, and the LM path through
+the flash-attention kernel against the same path on its plain version.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core import VectorizedConfig, make_cluster
 from repro_torch.kernels import dom_admit as admit_mod
 from repro_torch.kernels import dom_release as release_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.sim.network import NetworkParams
 from repro_torch.sim.workload import Workload, WorkloadDriver
 
@@ -119,3 +121,87 @@ def test_card_run_equals_cpu_run_bitwise(dev, crash, cfg_kw):
     lg, lc = gpu.engine.logs.log_columns(), cpu.engine.logs.log_columns()
     for col in lg:
         assert lg[col].tobytes() == lc[col].tobytes(), col
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernel vs plain version (tolerances of the reference's
+# kernel tests, tests/test_kernels.py: 2e-5 float32, 2e-2 bf16)
+# ---------------------------------------------------------------------------
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(dev, B, S, Sk, Hq, Hk, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor(             # noqa: E731
+        rng.standard_normal(shape, dtype=np.float32), device=dev).to(dtype)
+    return mk(B, S, Hq, D), mk(B, Sk, Hk, D), mk(B, Sk, Hk, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,Hq,Hk,D,causal,window,q_offset", [
+    (1, 64, 64, 4, 4, 64, True, None, 0),
+    (2, 200, 200, 8, 2, 64, True, None, 0),       # ragged S = Sk
+    (2, 200, 200, 8, 2, 64, False, None, 0),
+    (1, 300, 300, 8, 1, 64, True, 32, 0),         # window, MQA
+    (1, 130, 130, 4, 2, 64, False, 48, 0),        # non-causal window
+    (2, 96, 96, 4, 2, 128, True, None, 0),        # D = 128
+    (1, 77, 333, 4, 4, 128, False, None, 0),      # S != Sk
+    (1, 1, 257, 8, 2, 64, True, None, 256),       # one query at the end
+    (1, 40, 200, 4, 2, 64, True, 16, 160),        # q_offset + window
+    (1, 16, 16, 4, 2, 64, True, 4, 40),           # rows that see no key
+])
+def test_flash_attention_kernel_equals_plain(dev, dtype, B, S, Sk, Hq, Hk, D,
+                                             causal, window, q_offset):
+    q, k, v = _qkv(dev, B, S, Sk, Hq, Hk, D, dtype, seed=S + Sk)
+    got = fa_mod.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+    want = fa_mod.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max()
+    assert float(err.cpu()) <= FA_TOL[dtype]
+
+
+def test_flash_attention_wrapper_launches_on_cuda_tensors(dev):
+    q, k, v = _qkv(dev, 1, 64, 64, 4, 2, 64, torch.bfloat16)
+    before = fa_mod.launches
+    fa_mod.flash_attention(q, k, v)
+    assert fa_mod.launches == before + 1
+    with pytest.raises(ValueError):           # the kernel takes D in {64, 128}
+        fa_mod.flash_attention(q[..., :32].contiguous(),
+                               k[..., :32].contiguous(),
+                               v[..., :32].contiguous())
+    with pytest.raises(ValueError):           # no silent copy of a strided q
+        fa_mod.flash_attention(q.transpose(1, 2), k, v)
+    assert fa_mod.launches == before + 1
+
+
+def test_lm_prefill_through_the_kernel_matches_the_plain_path(dev):
+    """A 2-layer model at tinyllama's head shape (Hq 32, Hk 4, D 64): 2
+    launches per prefill, and the logits agree with the same prefill on the
+    plain attention within bf16 noise (2^-5 of the largest logit)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.model import init_params, make_prefill
+
+    full = get_config("tinyllama-1.1b")
+    cfg = smoke_config("tinyllama-1.1b", n_layers=2, d_model=512,
+                       n_heads=full.n_heads, n_kv_heads=full.n_kv_heads,
+                       head_dim=64, d_ff=1024, vocab=1024)
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 300)), device=dev)
+    prefill = make_prefill(cfg)
+    before = fa_mod.launches
+    logits, hidden = prefill(params, {"tokens": tokens})
+    assert fa_mod.launches == before + cfg.n_layers
+    saved = fa_mod.flash_attention_cuda
+    fa_mod.flash_attention_cuda = fa_mod.flash_attention_plain
+    try:
+        want, _ = prefill(params, {"tokens": tokens})
+    finally:
+        fa_mod.flash_attention_cuda = saved
+    scale = float(want.float().abs().max().cpu())
+    err = float((logits.float() - want.float()).abs().max().cpu())
+    assert torch.isfinite(hidden).all()
+    assert err <= scale * 2 ** -5

@@ -17,6 +17,7 @@ from repro.kernels.dom_admit import dom_admit_pallas
 from repro.kernels.dom_release import dom_release_pallas
 from repro_torch.kernels import dom_admit as admit_mod
 from repro_torch.kernels import dom_release as release_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.timekeys import KEY_INF, KEY_TOP, time_sort_keys
 
@@ -237,3 +238,53 @@ def test_cuda_entry_points_raise_without_a_card():
         ops.dom_admit(np.zeros(4), np.zeros((4, 3)))
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.dom_deadline_order(np.zeros(4))
+
+
+def _qkv(S=16, Hq=4, Hk=2, D=64, dtype=torch.float32):
+    mk = lambda *shape: torch.as_tensor(                 # noqa: E731
+        RNG.standard_normal(shape, dtype=np.float32)).to(dtype)
+    return mk(2, S, Hq, D), mk(2, S, Hk, D), mk(2, S, Hk, D)
+
+
+def test_flash_attention_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    before = fa_mod.launches
+    q, k, v = _qkv()
+    assert torch.equal(fa_mod.flash_attention(q, k, v, window=4),
+                       fa_mod.flash_attention_plain(q, k, v, window=4))
+    assert torch.equal(ops.attention(q, k, v, causal=False),
+                       fa_mod.flash_attention_plain(q, k, v, causal=False))
+    assert fa_mod.launches == before
+
+
+def test_flash_attention_launcher_refuses_cpu_tensors():
+    q, k, v = _qkv(dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention_cuda(q, k, v)
+
+
+def test_flash_attention_wrapper_validates_inputs():
+    q, k, v = _qkv()
+    with pytest.raises(ValueError):                 # 4 query heads, 3 KV heads
+        fa_mod.flash_attention(q, k[:, :, :1].expand(-1, -1, 3, -1),
+                               v[:, :, :1].expand(-1, -1, 3, -1))
+    with pytest.raises(ValueError):                 # k and v differ
+        fa_mod.flash_attention(q, k, v[:, :8])
+    with pytest.raises(ValueError):                 # head dims differ
+        fa_mod.flash_attention(q, k[..., :32], v[..., :32])
+    with pytest.raises(TypeError):                  # mixed dtypes
+        fa_mod.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):                 # not [B, S, H, D]
+        fa_mod.flash_attention(q[0], k[0], v[0])
+
+
+def test_lm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import init_params, zero_cache
+
+    cfg = smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zero_cache(cfg, 1, 8)

@@ -1,0 +1,371 @@
+"""The port's LM slice (repro_torch configs, layers, model, serving) against
+the reference's, at `smoke_config("tinyllama-1.1b")`.
+
+Both packages get the same parameters (the reference's `init_params`,
+carried across with `params_from_reference`) and the same numpy-seeded
+tokens. Tolerances:
+- float32 compute (both packages' compute dtype set to float32 for the
+  test): 1e-4 -- the same arithmetic, summed in another order;
+- bf16 compute (the packages as they ship): 2^-5 of the largest magnitude
+  of the compared tensor. bf16 keeps 8 significant bits, and the two
+  frameworks round the residual stream and the products' outputs at the
+  same points but sum in different orders, so a few units in the last
+  place of the largest value build up over the layers (2^-5 is four units
+  at the top of its binade).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.layers as jl
+import repro.models.model as jm
+import repro_torch.models.layers as tl
+import repro_torch.models.model as tm
+from repro.configs import all_arch_names as j_all_arch_names
+from repro.configs import get_config as j_get_config
+from repro.configs import smoke_config as j_smoke_config
+from repro.serving.engine import GenRequest as JGenRequest
+from repro.serving.engine import ServingEngine as JServingEngine
+from repro_torch.configs import all_arch_names, get_config, smoke_config
+from repro_torch.models import transformer as ttf
+from repro_torch.serving.engine import GenRequest, ServingEngine
+from repro_torch.serving.kv_cache import SlotPool, write_prefill_into_cache
+
+ARCH = "tinyllama-1.1b"
+F32_TOL = 1e-4
+
+
+def bf16_tol(ref) -> float:
+    return float(np.abs(np.asarray(ref, np.float32)).max()) * 2 ** -5
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg_j, cfg_t = j_smoke_config(ARCH), smoke_config(ARCH)
+    pj = jm.init_params(cfg_j, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, pj)
+    pt = tm.params_from_reference(tree, device="cpu")
+    return cfg_j, cfg_t, pj, tree, pt
+
+
+@pytest.fixture
+def f32_compute(monkeypatch):
+    """Both packages compute in float32 (the algorithm, not the rounding)."""
+    monkeypatch.setattr(jl, "CDT", jnp.float32)
+    monkeypatch.setattr(jm, "CDT", jnp.float32)
+    monkeypatch.setattr(tl, "CDT", torch.float32)
+    monkeypatch.setattr(tm, "CDT", torch.float32)
+
+
+def _tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape,
+                                                dtype=np.int64).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+def test_configs_are_the_references():
+    assert all_arch_names() == j_all_arch_names()
+    for name in all_arch_names():
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(j_get_config(name))
+    assert dataclasses.asdict(smoke_config(ARCH, n_layers=3)) == \
+        dataclasses.asdict(j_smoke_config(ARCH, n_layers=3))
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen2-7b",
+                                  "granite-20b", "chatglm3-6b"])
+def test_count_params_equals_the_references(name):
+    assert tm.count_params(get_config(name)) == \
+        jm.count_params(j_get_config(name))
+    assert get_config(name).n_params() == j_get_config(name).n_params()
+
+
+@pytest.mark.parametrize("name", ["mamba2-130m", "hymba-1.5b", "dbrx-132b",
+                                  "seamless-m4t-large-v2",
+                                  "phi-3-vision-4.2b"])
+def test_unported_families_are_refused(name):
+    cfg = smoke_config(name)
+    for fn in (lambda: tm.count_params(cfg), lambda: tm.make_prefill(cfg),
+               lambda: tm.make_decode_step(cfg),
+               lambda: tm.zero_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError):
+            fn()
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+def test_params_from_reference_round_trips_every_leaf(setup):
+    _, _, _, tree, pt = setup
+    leaves_j = jax.tree_util.tree_leaves_with_path(tree)
+    leaves_t = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), pt))
+    assert [p for p, _ in leaves_j] == [p for p, _ in leaves_t]
+    for (_, a), (_, b) in zip(leaves_j, leaves_t):
+        assert b.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_init_params_has_the_references_tree_and_distributions(setup):
+    cfg_j, cfg_t, pj, _, _ = setup
+    got = tm.init_params(cfg_t, seed=0, device="cpu")
+    shapes_j = jax.tree.map(lambda a: tuple(a.shape), pj)
+    shapes_t = jax.tree.map(lambda t: tuple(t.shape), got)
+    assert shapes_j == shapes_t
+    assert torch.equal(got["final_norm"]["scale"],
+                       torch.ones(cfg_t.d_model))
+    w = got["layers"]["mlp"]["w_up"]          # [L, d, f]: fan_in d
+    assert abs(float(w.std()) * cfg_t.d_model ** 0.5 - 1.0) < 0.05
+    again = tm.init_params(cfg_t, seed=0, device="cpu")
+    assert torch.equal(again["embed"], got["embed"])
+    assert not torch.equal(tm.init_params(cfg_t, seed=1,
+                                          device="cpu")["embed"],
+                           got["embed"])
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+def _x(shape, seed, dtype="bfloat16"):
+    a = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return (jnp.asarray(a, getattr(jnp, dtype)),
+            torch.as_tensor(a).to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_the_references(dtype):
+    tol = {"float32": F32_TOL, "bfloat16": None}[dtype]
+
+    def close(got, want):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                                   atol=tol or bf16_tol(_np(want)))
+
+    xj, xt = _x((2, 7, 64), 1, dtype)
+    sj, st = _x((64,), 2, "float32")
+    bj, bt = _x((64,), 3, "float32")
+    close(tl.rms_norm(xt, st), jl.rms_norm(xj, sj))
+    close(tl.layer_norm(xt, st, bt), jl.layer_norm(xj, sj, bj))
+    hj, ht = _x((2, 7, 4, 16), 4, dtype)
+    pos = np.arange(7)[None, :] + 100
+    for frac in (1.0, 0.5):
+        close(tl.apply_rope(ht, torch.as_tensor(pos), frac, 10000.0),
+              jl.apply_rope(hj, jnp.asarray(pos), frac, 10000.0))
+    inv_j, rot_j = jl.rope_freqs(16, 1.0, 10000.0)
+    inv_t, rot_t = tl.rope_freqs(16, 1.0, 10000.0)
+    assert rot_j == rot_t
+    np.testing.assert_array_equal(np.asarray(inv_j), inv_t.numpy())
+    mlp = {k: _x(s, i + 10, "float32") for i, (k, s) in enumerate(
+        {"w_gate": (64, 96), "w_up": (64, 96), "w_down": (96, 64),
+         "b_up": (96,), "b_down": (64,)}.items())}
+    pj = {k: v[0] / 8 for k, v in mlp.items()}
+    pt = {k: v[1] / 8 for k, v in mlp.items()}
+    close(tl.swiglu(xt, pt), jl.swiglu(xj, pj))
+    close(tl.gelu_mlp(xt, pt), jl.gelu_mlp(xj, pj))
+    table_j, table_t = _x((50, 64), 5, "float32")
+    toks = np.random.default_rng(6).integers(0, 50, (2, 7))
+    ej = jl.embed(jnp.asarray(toks), table_j)
+    et = tl.embed(torch.as_tensor(toks), table_t)
+    assert et.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(et), _np(ej))
+    close(tl.unembed(xt, table_t), jl.unembed(xj, table_j))
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode
+# ---------------------------------------------------------------------------
+def _prefill_both(setup, tokens):
+    cfg_j, cfg_t, pj, _, pt = setup
+    lj, hj = jm.make_prefill(cfg_j)(pj, {"tokens": jnp.asarray(tokens)})
+    lt, ht = tm.make_prefill(cfg_t)(pt, {"tokens": torch.as_tensor(tokens)})
+    return (lj, hj), (lt, ht)
+
+
+def test_prefill_matches_the_reference_in_bf16(setup):
+    tokens = _tokens(setup[0], (2, 40), seed=0)
+    (lj, hj), (lt, ht) = _prefill_both(setup, tokens)
+    assert lt.dtype == torch.bfloat16 and lt.shape == (2, setup[0].vocab)
+    assert ht.shape == (2, 40, setup[0].d_model)
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=bf16_tol(lj))
+    np.testing.assert_allclose(_np(ht), _np(hj), rtol=0, atol=bf16_tol(hj))
+
+
+def test_prefill_matches_the_reference_in_f32(setup, f32_compute):
+    tokens = _tokens(setup[0], (2, 33), seed=1)
+    (lj, hj), (lt, ht) = _prefill_both(setup, tokens)
+    assert lt.dtype == torch.float32
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=F32_TOL)
+    np.testing.assert_allclose(_np(ht), _np(hj), rtol=0, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_decode_step_matches_the_reference(setup, compute, monkeypatch):
+    if compute == "float32":
+        for mod, val in ((jl, jnp.float32), (jm, jnp.float32),
+                         (tl, torch.float32), (tm, torch.float32)):
+            monkeypatch.setattr(mod, "CDT", val)
+    cfg_j, cfg_t, pj, _, pt = setup
+    B, Smax, steps = 3, 24, 6
+    tokens = _tokens(cfg_j, (B, steps), seed=2)
+    cj = jm.zero_cache(cfg_j, B, Smax)
+    ct = tm.zero_cache(cfg_t, B, Smax, device="cpu")
+    assert ct["kv"][0].shape == cj["kv"][0].shape
+    assert str(ct["kv"][0].dtype).split(".")[-1] == str(cj["kv"][0].dtype)
+    step_j = jax.jit(jm.make_decode_step(cfg_j))
+    step_t = tm.make_decode_step(cfg_t)
+    for i in range(steps):
+        lj, cj = step_j(pj, cj, jnp.asarray(tokens[:, i:i + 1]), jnp.int32(i))
+        lt, ct = step_t(pt, ct, torch.as_tensor(tokens[:, i:i + 1]), i)
+        tol = F32_TOL if compute == "float32" else bf16_tol(lj)
+        np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=tol)
+    for a, b in zip(cj["kv"], ct["kv"]):
+        tol = F32_TOL if compute == "float32" else bf16_tol(a)
+        np.testing.assert_allclose(_np(b), _np(a), rtol=0, atol=tol)
+        assert not np.any(_np(b)[:, :, steps:])          # untouched tail
+
+
+@pytest.mark.parametrize("name", ["qwen2-7b", "granite-20b", "chatglm3-6b"])
+def test_other_dense_configs_match_the_reference_in_f32(name, f32_compute):
+    """The dense family's other switches: qkv biases (qwen2), layer norm,
+    gelu MLP and learned positions (granite), half-rotary RoPE (chatglm3)."""
+    cfg_j, cfg_t = j_smoke_config(name), smoke_config(name)
+    pj = jm.init_params(cfg_j, jax.random.PRNGKey(1))
+    pt = tm.params_from_reference(jax.tree.map(np.asarray, pj), device="cpu")
+    tokens = _tokens(cfg_j, (2, 19), seed=5)
+    lj, hj = jm.make_prefill(cfg_j)(pj, {"tokens": jnp.asarray(tokens)})
+    lt, ht = tm.make_prefill(cfg_t)(pt, {"tokens": torch.as_tensor(tokens)})
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=F32_TOL)
+    np.testing.assert_allclose(_np(ht), _np(hj), rtol=0, atol=F32_TOL)
+    cj, ct = jm.zero_cache(cfg_j, 2, 8), tm.zero_cache(cfg_t, 2, 8,
+                                                       device="cpu")
+    step_j = jax.jit(jm.make_decode_step(cfg_j))
+    step_t = tm.make_decode_step(cfg_t)
+    for i in range(3):
+        lj, cj = step_j(pj, cj, jnp.asarray(tokens[:, i:i + 1]), jnp.int32(i))
+        lt, ct = step_t(pt, ct, torch.as_tensor(tokens[:, i:i + 1]), i)
+        np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=F32_TOL)
+
+
+def test_prefill_last_logits_equal_the_decode_logits(setup, f32_compute):
+    """The two paths of the model agree on one sequence: prefill's last
+    position and the decode step that feeds the last token."""
+    cfg_j, cfg_t, pj, _, pt = setup
+    tokens = _tokens(cfg_j, (1, 12), seed=3)
+    last, _ = tm.make_prefill(cfg_t)(pt, {"tokens": torch.as_tensor(tokens)})
+    cache = tm.zero_cache(cfg_t, 1, 16, device="cpu")
+    step = tm.make_decode_step(cfg_t)
+    for i in range(tokens.shape[1]):
+        logits, cache = step(pt, cache, torch.as_tensor(tokens[:, i:i + 1]),
+                             i)
+    np.testing.assert_allclose(logits.numpy(), last.numpy(), rtol=0,
+                               atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+def _record(engine):
+    """Wrap the engine's decode step to keep every step's logits."""
+    seen = []
+    decode = engine.decode
+
+    def wrapped(*args):
+        logits, cache = decode(*args)
+        seen.append(_np(logits))
+        return logits, cache
+
+    engine.decode = wrapped
+    return seen
+
+
+def test_serving_engine_teacher_forced_matches_the_reference(setup):
+    cfg_j, cfg_t, pj, _, pt = setup
+    jeng = JServingEngine(cfg_j, pj, n_slots=3, max_seq=48)
+    teng = ServingEngine(cfg_t, pt, n_slots=3, max_seq=48)
+    seen_j, seen_t = _record(jeng), _record(teng)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg_j.vocab, n).tolist() for n in (5, 9, 3)]
+    for i, prompt in enumerate(prompts):
+        assert jeng.admit(JGenRequest(seq_id=i, prompt=prompt, max_new=6 + i))
+        assert teng.admit(GenRequest(seq_id=i, prompt=prompt, max_new=6 + i))
+    assert not teng.admit(GenRequest(seq_id=9, prompt=[1], max_new=1))
+    compared = agreed = 0
+    while any(not r.done for r in jeng.requests.values()):
+        n_j, n_t = jeng.tick(), teng.tick()
+        assert n_j == n_t
+        for seq_id, rj in jeng.requests.items():
+            rt = teng.requests[seq_id]
+            assert len(rt.out) == len(rj.out) and rt.done == rj.done
+            if rt.out and rt.out[-1] != rj.out[-1]:
+                rt.out[-1] = rj.out[-1]            # teacher forcing
+        np.copyto(teng.last_token, jeng.last_token)
+    assert len(seen_t) == len(seen_j) > 0
+    tol = bf16_tol(np.stack(seen_j))
+    for lj, lt in zip(seen_j, seen_t):
+        np.testing.assert_allclose(lt, lj, rtol=0, atol=tol)
+        for row_j, row_t in zip(lj, lt):
+            top2 = np.sort(row_j)[-2:]
+            if top2[1] - top2[0] > 2 * tol:
+                compared += 1
+                agreed += int(np.argmax(row_t) == np.argmax(row_j))
+    assert compared > 0 and agreed == compared
+    np.testing.assert_array_equal(teng.lengths, jeng.lengths)
+    assert teng.state_fingerprint() == jeng.state_fingerprint()
+    assert teng.pool.n_free == jeng.pool.n_free == 3
+
+
+def test_engine_reproduces_the_references_cache_overwrite(setup):
+    """Stepping one slot writes every slot's K/V at that slot's position
+    (`serving/engine.py:76-83` with `transformer.py:140-146`): admitting
+    [9, 10] into slot 1 rewrites slot 0's cache at positions 0 and 1."""
+    cfg_j, cfg_t, pj, _, pt = setup
+    jeng = JServingEngine(cfg_j, pj, n_slots=2, max_seq=16)
+    teng = ServingEngine(cfg_t, pt, n_slots=2, max_seq=16)
+    for eng, req in ((jeng, JGenRequest), (teng, GenRequest)):
+        eng.admit(req(seq_id=0, prompt=[5, 6, 7, 8], max_new=2))
+    before_j = _np(jeng.cache["kv"][0])[:, 0].copy()
+    before_t = _np(teng.cache["kv"][0])[:, 0].copy()
+    for eng, req in ((jeng, JGenRequest), (teng, GenRequest)):
+        eng.admit(req(seq_id=1, prompt=[9, 10], max_new=2))
+    after_j = _np(jeng.cache["kv"][0])[:, 0]
+    after_t = _np(teng.cache["kv"][0])[:, 0]
+    for before, after in ((before_j, after_j), (before_t, after_t)):
+        assert not np.array_equal(before[:, :2], after[:, :2])
+        np.testing.assert_array_equal(before[:, 2:], after[:, 2:])
+    np.testing.assert_allclose(after_t, after_j, rtol=0,
+                               atol=bf16_tol(after_j))
+    np.testing.assert_array_equal(teng.lengths, [4, 2])
+
+
+def test_slot_pool_and_prefill_write():
+    pool = SlotPool(2)
+    assert [pool.alloc(7), pool.alloc(8), pool.alloc(9)] == [0, 1, None]
+    pool.release(0)
+    assert pool.active() == [1] and pool.n_free == 1
+    assert pool.alloc(10) == 0
+    cfg = smoke_config(ARCH)
+    cache = tm.zero_cache(cfg, 3, 8, device="cpu")
+    seq = {"kv": tuple(torch.ones(cfg.n_layers, 1, 8, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim) for _ in range(2))}
+    out = write_prefill_into_cache(cache, 1, seq)
+    k = out["kv"][0]
+    assert k.dtype == torch.bfloat16
+    assert bool((k[:, 1] == 1).all()) and not bool(k[:, [0, 2]].any())
+
+
+def test_model_refuses_a_window_and_names_what_it_runs():
+    cfg = dataclasses.replace(smoke_config(ARCH), window=64)
+    with pytest.raises(NotImplementedError, match="window"):
+        ttf.check_supported(cfg)
+    ttf.check_supported(smoke_config(ARCH))
