@@ -36,7 +36,25 @@ Phases (any failure exits non-zero):
      continuous-batching `ServingEngine` (4 slots, max_seq 256) answering
      4 prompts of 32 tokens with 16 new tokens each; and a one-slot engine
      whose decode logits after admitting a prompt must agree with
-     `make_prefill`'s last logits for it, within the same tolerance.
+     `make_prefill`'s last logits for it, within the same tolerance;
+  7. the SSD-scan kernel against its plain version on the card at
+     mamba2-130m's prefill shape (b 2, S 4096, H 24, P 64, N 128, chunk
+     128) with x, B, C bf16 and dt float32 as the model calls it
+     (tolerance 5e-2), then all float32 (2e-4) -- the reference's
+     kernel-test tolerances, on y and on the final state -- and at small
+     shapes (the reference's three kernel-test shapes, a ragged S 333,
+     S 32 < chunk, and b 1, S 32768 at the main head layout), each timed
+     with CUDA events beside the plain version;
+  8. the LM path at mamba2-130m's full width (24 layers, d 768, H 24, P 64,
+     N 128, random weights from seed 0), as phase 6 drives tinyllama:
+     prefill B 2 x S 4096 with the counts reset just before and read just
+     after (24 launches of ssd_scan, none of flash_attention), a B 1 x
+     S 32768 prefill (wall time, peak memory), kernel vs plain scan
+     through the model at B 1 x S 2048, the 4-slot server, and one-slot
+     decode vs prefill; the two comparisons compute in float32 (see
+     `LM_KERNELS`: in bf16 this model's own rounding noise exceeds 2^-5),
+     and the bf16 kernel-vs-plain figure is printed beside the bf16
+     difference between two exact orders of the plain scan.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX or `repro`.
 
@@ -44,12 +62,13 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
 card half of phase 4 twice -- once to warm, once under `torch.profiler`
 (device time by kernel, device busy share of the wall time) and cProfile
 (where the host time goes) -- and then one prefill and a few serving ticks
-of phase 6 under `torch.profiler`. Profiling slows the run; the plain
-run's wall times are the ones phases 4 and 6 print.
+of phases 6 and 8 under `torch.profiler`. Profiling slows the run; the
+plain run's wall times are the ones phases 4, 6 and 8 print.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -61,12 +80,14 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 # tensor cores, float32 outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:42
-# kernel vs plain attention through the LM: bf16 keeps 8 significant bits;
-# the kernel and the plain version round each layer's attention output to
-# bf16 from float32 sums taken in different orders, so a unit in the last
-# place flips here and there and the flips travel through 22 residual
-# layers: 2^-5 of the largest logit (four units at the top of its binade)
+# kernel vs plain version through the LM: bf16 keeps 8 significant bits;
+# the kernel and the plain version round each layer's attention or scan
+# output to bf16 from float32 sums taken in different orders, so a unit in
+# the last place flips here and there and the flips travel through the
+# residual layers: 2^-5 of the largest logit (four units at the top of its
+# binade)
 LM_REL_TOL = 2.0 ** -5
+SSD_TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # tests/test_kernels.py:64
 SIZES = (10_000, 100_000, 1_000_000)
 MAIN_N_PAD = 16_384             # pow2 bucket of ~1e4 requests per epoch
 
@@ -273,8 +294,93 @@ def time_prefill_32k(dev) -> dict:
     return out
 
 
-def drive_lm_path(dev) -> dict:
-    """Phase 6: tinyllama-1.1b at full width on the card."""
+def check_ssd(dev, b, S, H, P, N, chunk, dtype, dt_dtype=None) -> dict:
+    """ssd_scan's kernel == its plain version within the reference's
+    kernel-test tolerance of x's dtype (|got - want| <= tol + tol |want|,
+    on y and the final state); kernel and plain times in ms (CUDA events,
+    mean of 20 after a warm call) beside the bound."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dt_dtype = dt_dtype or dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(S + H)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(b, S, H, P).to(getattr(torch, dtype))
+    dt = (randn(b, S, H).abs() * 0.3 + 0.01).to(getattr(torch, dt_dtype))
+    A = -randn(H).abs() - 0.1
+    B, C = (randn(b, S, N).to(getattr(torch, dtype)) for _ in range(2))
+    got_y, got_h = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    want_y, want_h = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    shape = (f"b{b} S{S} H{H} P{P} N{N} chunk{chunk} x/B/C {dtype} "
+             f"dt {dt_dtype}")
+    errs = {}
+    for name, got, want in (("y", got_y, want_y), ("h", got_h, want_h)):
+        diff = (got.float() - want.float()).abs()
+        excess = float((diff - tol * want.float().abs()).max().cpu())
+        errs[name] = float(diff.max().cpu())
+        if not (excess <= tol and torch.isfinite(got).all()):
+            raise RuntimeError(f"ssd_scan's {name} disagrees with its plain "
+                               f"version at {shape}: max abs err "
+                               f"{errs[name]}, tolerance {tol} + {tol} |want|")
+    del got_y, got_h, want_y, want_h
+    size = {"bfloat16": 2, "float32": 4}
+    t_bytes = ssd.ssd_scan_bytes(b, S, H, P, N, x_size=size[dtype],
+                                 bc_size=size[dtype],
+                                 dt_size=size[dt_dtype]) / HBM_BYTES_PER_S
+    t_ops = ssd.ssd_scan_flops(b, S, H, P, N, chunk) / PEAK_FLOPS[dtype]
+    res = {"shape": shape, "max_abs_err": errs["y"],
+           "state_max_abs_err": errs["h"],
+           "ms": time_ms(lambda: ssd.ssd_scan_cuda(x, dt, A, B, C,
+                                                   chunk=chunk)),
+           "plain_ms": time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, B, C,
+                                                          chunk=chunk)),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None}
+    torch.cuda.empty_cache()
+    return res
+
+
+# The LM paths of phases 6 and 8: each runs every prefill layer through one
+# kernel, whose module is swapped to its plain version for the comparison,
+# and the compute type of the whole-model comparisons (kernel vs plain,
+# one-slot decode vs prefill). tinyllama: the shipping bf16. mamba2-130m:
+# float32. In bf16 two exact float32 orders of its plain scan (chunk 64 and
+# 128) already move its last logits by more than 2^-5 of the largest logit:
+# once two runs differ at all their bf16 roundings part, and 24 random
+# layers carry the model's full bf16 noise, so a bf16 gate at 2^-5 cannot
+# tell a right scan from a wrong one. Phase 8 prints the bf16 kernel-vs-plain
+# figure beside that yardstick.
+LM_KERNELS = {"tinyllama-1.1b": ("flash_attention", "bfloat16"),
+              "mamba2-130m": ("ssd_scan", "float32")}
+
+
+@contextlib.contextmanager
+def compute_dtype(name: str):
+    """The port's compute type (`CDT`) set to ``name`` inside the block."""
+    import torch
+
+    import repro_torch.models.layers as layers
+    import repro_torch.models.model as model
+
+    saved = layers.CDT
+    layers.CDT = model.CDT = getattr(torch, name)
+    try:
+        yield
+    finally:
+        layers.CDT = model.CDT = saved
+
+
+def drive_lm_path(dev, arch: str, long_prompt: int = 0) -> dict:
+    """Phases 6 and 8: one LM at full width on the card. With
+    ``long_prompt``, also one B 1 prefill of that many tokens."""
     import numpy as np
     import torch
 
@@ -282,11 +388,16 @@ def drive_lm_path(dev) -> dict:
     from repro_torch.kernels import dom_admit as admit_mod
     from repro_torch.kernels import dom_release as release_mod
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models.model import (count_params, init_params,
                                           make_prefill)
     from repro_torch.serving.engine import GenRequest, ServingEngine
 
-    cfg = get_config("tinyllama-1.1b")
+    mods = {"flash_attention": fa, "ssd_scan": ssd, "dom_admit": admit_mod,
+            "dom_release": release_mod}
+    kernel, cmp_dtype = LM_KERNELS[arch]
+    mod = mods[kernel]
+    cfg = get_config(arch)
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
@@ -301,18 +412,22 @@ def drive_lm_path(dev) -> dict:
     prefill(params, {"tokens": tokens})              # warm: cuBLAS, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    admit_mod.launches = release_mod.launches = fa.launches = 0
+    for m in mods.values():
+        m.launches = 0
     t0 = time.perf_counter()
     logits, hidden = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
-    out["launches"] = {"flash_attention": fa.launches,
-                       "dom_admit": admit_mod.launches,
-                       "dom_release": release_mod.launches}
+    out["launches"] = {name: m.launches for name, m in mods.items()}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if fa.launches != cfg.n_layers:
-        raise RuntimeError(f"prefill launched flash_attention {fa.launches} "
-                           f"times, not once per layer ({cfg.n_layers})")
+    if out["launches"][kernel] != cfg.n_layers:
+        raise RuntimeError(f"prefill launched {kernel} "
+                           f"{out['launches'][kernel]} times, not once per "
+                           f"layer ({cfg.n_layers})")
+    others = {k: v for k, v in out["launches"].items() if k != kernel and v}
+    if others:
+        raise RuntimeError(f"{arch}'s prefill launched other kernels: "
+                           f"{others}")
     if not (logits.shape == (2, cfg.vocab) and hidden.shape ==
             (2, 4096, cfg.d_model) and torch.isfinite(logits).all()
             and torch.isfinite(hidden).all()):
@@ -320,23 +435,61 @@ def drive_lm_path(dev) -> dict:
                            "finite")
     del logits, hidden
 
-    # kernel vs plain attention through the whole model (B 1, S 2048)
+    if long_prompt:
+        long = torch.as_tensor(rng.integers(0, cfg.vocab, (1, long_prompt)),
+                               device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = mod.launches
+        t0 = time.perf_counter()
+        logits, hidden = prefill(params, {"tokens": long})
+        torch.cuda.synchronize()
+        out["long"] = {"tokens": long_prompt,
+                       "prefill_s": time.perf_counter() - t0,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": mod.launches - before}
+        if not (out["long"]["launches"] == cfg.n_layers
+                and torch.isfinite(logits).all()
+                and torch.isfinite(hidden).all()):
+            raise RuntimeError(f"the S {long_prompt} prefill is not finite "
+                               f"or skipped the kernel")
+        del logits, hidden, long
+        torch.cuda.empty_cache()
+
+    # kernel vs plain version through the whole model (B 1, S 2048)
     short = tokens[:1, :2048]
-    kern, _ = prefill(params, {"tokens": short})
-    saved = fa.flash_attention_cuda
-    fa.flash_attention_cuda = fa.flash_attention_plain
-    try:
-        plain, _ = prefill(params, {"tokens": short})
-    finally:
-        fa.flash_attention_cuda = saved
-    scale = float(plain.float().abs().max().cpu())
-    err = float((kern.float() - plain.float()).abs().max().cpu())
-    out["prefill_vs_plain"] = {"max_abs_err": err, "max_abs_logit": scale,
+    cuda_fn = getattr(mod, f"{kernel}_cuda")
+
+    def last_logits(fn):
+        setattr(mod, f"{kernel}_cuda", fn)
+        try:
+            return prefill(params, {"tokens": short})[0].float()
+        finally:
+            setattr(mod, f"{kernel}_cuda", cuda_fn)
+
+    plain_fn = getattr(mod, f"{kernel}_plain")
+    with compute_dtype(cmp_dtype):
+        kern, plain = last_logits(cuda_fn), last_logits(plain_fn)
+    scale = float(plain.abs().max().cpu())
+    err = float((kern - plain).abs().max().cpu())
+    out["prefill_vs_plain"] = {"compute": cmp_dtype, "max_abs_err": err,
+                               "max_abs_logit": scale,
                                "tol": scale * LM_REL_TOL}
     if not err <= scale * LM_REL_TOL:
         raise RuntimeError(f"prefill through the kernel disagrees with the "
-                           f"plain-attention prefill: {err} > "
+                           f"plain-{kernel} prefill ({cmp_dtype}): {err} > "
                            f"{scale * LM_REL_TOL}")
+    if kernel == "ssd_scan":
+        # the shipping bf16, beside two exact float32 orders of the plain
+        # scan (chunk 64 against the config's chunk)
+        kern, plain = last_logits(cuda_fn), last_logits(plain_fn)
+        other = last_logits(lambda *a, chunk: plain_fn(*a, chunk=64))
+        out["prefill_vs_plain_bf16"] = {
+            "max_abs_err": float((kern - plain).abs().max().cpu()),
+            "max_abs_logit": float(plain.abs().max().cpu()),
+            "plain_chunk64_vs_plain": float((other - plain).abs().max()
+                                            .cpu())}
+    del kern, plain
 
     # the continuous-batching server: 4 prompts of 32 tokens, 16 new each
     prompts = [rng.integers(0, cfg.vocab, 32).tolist() for _ in range(4)]
@@ -364,22 +517,24 @@ def drive_lm_path(dev) -> dict:
 
     # a one-slot engine's decode logits after admitting prompt 0 ==
     # make_prefill's last logits for it (one slot: no cache overwrite)
-    one = ServingEngine(cfg, params, n_slots=1, max_seq=256)
-    seen = []
-    decode = one.decode
+    with compute_dtype(cmp_dtype):
+        one = ServingEngine(cfg, params, n_slots=1, max_seq=256)
+        seen = []
+        decode = one.decode
 
-    def recording(*args):
-        step_logits, cache = decode(*args)
-        seen.append(step_logits)
-        return step_logits, cache
+        def recording(*args):
+            step_logits, cache = decode(*args)
+            seen.append(step_logits)
+            return step_logits, cache
 
-    one.decode = recording
-    one.admit(GenRequest(seq_id=0, prompt=prompts[0], max_new=1))
-    last, _ = prefill(params, {"tokens": torch.as_tensor([prompts[0]],
-                                                         device=dev)})
+        one.decode = recording
+        one.admit(GenRequest(seq_id=0, prompt=prompts[0], max_new=1))
+        last, _ = prefill(params, {"tokens": torch.as_tensor([prompts[0]],
+                                                             device=dev)})
     scale = float(last.float().abs().max().cpu())
     err = float((seen[-1][0].float() - last[0].float()).abs().max().cpu())
-    out["decode_vs_prefill"] = {"max_abs_err": err, "max_abs_logit": scale,
+    out["decode_vs_prefill"] = {"compute": cmp_dtype, "max_abs_err": err,
+                                "max_abs_logit": scale,
                                 "tol": scale * LM_REL_TOL}
     if not err <= scale * LM_REL_TOL:
         raise RuntimeError(f"one-slot decode logits disagree with "
@@ -436,8 +591,8 @@ def profile_main_path(rate: float, duration: float) -> None:
     print(out.getvalue())
 
 
-def profile_lm_path(dev) -> None:
-    """Where the LM path's card time goes: one B 2 x S 4096 prefill and
+def profile_lm_path(dev, arch: str) -> None:
+    """Where an LM path's card time goes: one B 2 x S 4096 prefill and
     eight decode steps of a 4-slot engine, each under torch.profiler after
     a warm run (device time by kernel, device busy share of the wall)."""
     import numpy as np
@@ -448,7 +603,7 @@ def profile_lm_path(dev) -> None:
     from repro_torch.models.model import init_params, make_prefill
     from repro_torch.serving.engine import GenRequest, ServingEngine
 
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
     rng = np.random.default_rng(0)
     params = init_params(cfg, seed=0, device=dev)
     prefill = make_prefill(cfg)
@@ -473,7 +628,7 @@ def profile_lm_path(dev) -> None:
         events = prof.key_averages()
         busy_us = sum(e.self_device_time_total for e in events
                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        print(f"profiled {label}: wall {wall * 1e3:.2f} ms (profiler on), "
+        print(f"profiled {arch} {label}: wall {wall * 1e3:.2f} ms (profiler on), "
               f"device kernels {busy_us / 1e3:.2f} ms, busy share "
               f"{busy_us / 1e6 / wall:.3f}")
         print(events.table(sort_by="self_device_time_total", row_limit=15))
@@ -484,7 +639,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile the card runs of the main paths "
-                             "instead of the smoke phases 3-6")
+                             "instead of the smoke phases 3-8")
     args = parser.parse_args()
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch").is_dir():
@@ -522,7 +677,8 @@ def main() -> int:
     rate, duration = 1e6, 0.2
     if args.profile:
         profile_main_path(rate, duration)
-        profile_lm_path(dev)
+        for arch in LM_KERNELS:
+            profile_lm_path(dev, arch)
         return 0
 
     # -- 3. kernels vs plain versions ------------------------------------------
@@ -616,7 +772,7 @@ def main() -> int:
           f"{p32k['tail_max_abs_err']:.3g}")
 
     # -- 6. the LM path at full width ----------------------------------------
-    lm = drive_lm_path(dev)
+    lm = drive_lm_path(dev, "tinyllama-1.1b")
     print(f"tinyllama-1.1b ({lm['params']} parameters, init "
           f"{lm['init_s']:.2f} s): prefill B2 x S4096 {lm['prefill_s']:.4f} s "
           f"({2 * 4096 / lm['prefill_s']:.0f} tokens/s), launches "
@@ -633,6 +789,57 @@ def main() -> int:
           f"{sv['answers'][0]}")
     print(f"  one-slot decode after admission vs make_prefill: last logits "
           f"max abs err {dv['max_abs_err']:.4g} (tolerance {dv['tol']:.4g})")
+
+    # -- 7. the SSD scan vs its plain version ---------------------------------
+    print("ssd_scan (kernel vs plain on the card):")
+    ssd_main = {"bfloat16": check_ssd(dev, 2, 4096, 24, 64, 128, 128,
+                                      "bfloat16", "float32"),
+                "float32": check_ssd(dev, 2, 4096, 24, 64, 128, 128,
+                                     "float32")}
+    ssd_rows = list(ssd_main.values())
+    for dtype in ("bfloat16", "float32"):
+        for b, S, H, P, N, chunk in ((2, 64, 3, 4, 8, 16),
+                                     (1, 40, 2, 8, 4, 16),
+                                     (2, 128, 4, 16, 16, 32),
+                                     (2, 333, 24, 64, 128, 128),
+                                     (1, 32, 24, 64, 128, 128)):
+            ssd_rows.append(check_ssd(dev, b, S, H, P, N, chunk, dtype))
+    ssd_32k = check_ssd(dev, 1, 32768, 24, 64, 128, 128, "bfloat16",
+                        "float32")
+    ssd_rows.append(ssd_32k)
+    for r in ssd_rows:
+        print(f"  {r['shape']}: err y {r['max_abs_err']:.3g} h "
+              f"{r['state_max_abs_err']:.3g}, {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+
+    # -- 8. the SSM path at full width ---------------------------------------
+    sm = drive_lm_path(dev, "mamba2-130m", long_prompt=32768)
+    print(f"mamba2-130m ({sm['params']} parameters, init "
+          f"{sm['init_s']:.2f} s): prefill B2 x S4096 {sm['prefill_s']:.4f} s "
+          f"({2 * 4096 / sm['prefill_s']:.0f} tokens/s), launches "
+          f"{json.dumps(sm['launches'])}, peak {sm['peak_gb']:.2f} GB")
+    lg = sm["long"]
+    print(f"  prefill B1 x S{lg['tokens']}: {lg['prefill_s']:.4f} s "
+          f"({lg['tokens'] / lg['prefill_s']:.0f} tokens/s), "
+          f"{lg['launches']} launches, peak {lg['peak_gb']:.2f} GB")
+    pv, dv, sv = sm["prefill_vs_plain"], sm["decode_vs_prefill"], sm["serve"]
+    bv = sm["prefill_vs_plain_bf16"]
+    print(f"  prefill B1 x S2048, kernel vs plain scan, float32 compute: "
+          f"last logits max abs err {pv['max_abs_err']:.4g} (largest logit "
+          f"{pv['max_abs_logit']:.4g}, tolerance {pv['tol']:.4g}); in bf16 "
+          f"{bv['max_abs_err']:.4g} (largest {bv['max_abs_logit']:.4g}), "
+          f"where the plain scan at chunk 64 vs 128 differs by "
+          f"{bv['plain_chunk64_vs_plain']:.4g}")
+    print(f"  ServingEngine(n_slots=4, max_seq=256): 4 prompts x 32 tokens, "
+          f"{sv['tokens']} new tokens in {sv['wall_s']:.3f} s "
+          f"({sv['tokens_per_s']:.2f} tokens/s; {sv['decode_steps']} decode "
+          f"steps, admission {sv['admit_s']:.3f} s, decode ticks "
+          f"{sv['decode_tokens_per_s']:.2f} tokens/s); first answer "
+          f"{sv['answers'][0]}")
+    print(f"  one-slot decode after admission vs make_prefill, float32 "
+          f"compute: last logits max abs err {dv['max_abs_err']:.4g} "
+          f"(tolerance {dv['tol']:.4g})")
 
     record = {"kernels": []}
     for name, src, replaces in (
@@ -662,6 +869,21 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "prefill_32k": {k: p32k[k] for k in (
             "ms", "library_ms", "bound_ms")}})
+    r = ssd_main["bfloat16"]
+    record["kernels"].append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:61",
+        "launches": sm["launches"]["ssd_scan"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "shape": r["shape"],
+        "state_max_abs_err": r["state_max_abs_err"],
+        "float32": {k: ssd_main["float32"][k] for k in (
+            "max_abs_err", "state_max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")},
+        "prefill_32k": {k: ssd_32k[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Entry points over the CUDA kernels and their plain versions.
 
-Port of `repro/kernels/ops.py` (attention and the DOM half). `attention`
-is the dispatch the model's prefill calls: a CPU tensor runs the plain
-version, a CUDA tensor launches the flash-attention kernel. The DOM tensor forms
+Port of `repro/kernels/ops.py` (attention, the SSD scan and the DOM half).
+`attention` and `ssd_scan` are the dispatches the model's prefill calls: a
+CPU tensor runs the plain version, a CUDA tensor launches the
+flash-attention or the SSD-scan kernel. The DOM tensor forms
 (`dom_admit_device`, `dom_deadline_order_device`; `repro`'s ``*_traced``
 forms) take and return tensors on the caller's device and are what the
 fused epoch body calls: a CPU tensor runs the plain version, a CUDA tensor
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels.dom_admit import dom_admit as _admit
 from repro_torch.kernels.dom_release import dom_release
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 
 def resolve_device(device) -> torch.device:
@@ -35,6 +37,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """[B, S, Hq, D] x [B, Sk, Hk, D]^2 -> [B, S, Hq, D] on q's device."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128):
+    """The SSD scan core on x's device: x [b, S, H, P], dt [b, S, H],
+    A [H], B and C [b, S, N] -> (y [b, S, H, P], h [b, H, N, P] float32).
+    The reference's `ops.ssd_scan` returns y alone; the port returns the
+    final state beside it, which `models.ssm.ssd_chunked` hands on."""
+    return _ssd_scan(x, dt, A, B, C, chunk=chunk)
 
 
 # Early-buffer admission [N], [N, R] -> [N, R] bool on the tensors' device.
@@ -71,5 +82,5 @@ def dom_deadline_order(deadlines, *, device="cuda") -> np.ndarray:
     return dom_deadline_order_device(dt).cpu().numpy()
 
 
-__all__ = ["resolve_device", "attention", "dom_admit", "dom_admit_device", "dom_release",
+__all__ = ["resolve_device", "attention", "ssd_scan", "dom_admit", "dom_admit_device", "dom_release",
            "dom_deadline_order", "dom_deadline_order_device"]

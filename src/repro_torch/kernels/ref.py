@@ -1,9 +1,12 @@
-"""Oracles for the port's attention kernel.
+"""Oracles for the port's LM kernels.
 
-Port of the attention part of `repro/kernels/ref.py`: the correctness
-reference that the kernel tests hold `flash_attention` against.
+Port of the attention and SSD parts of `repro/kernels/ref.py`: the
+correctness references that the kernel tests hold `flash_attention` and
+`ssd_scan` against.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.attention import reference_attention
 
@@ -13,4 +16,24 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     return reference_attention(q, k, v, causal=causal, window=window)
 
 
-__all__ = ["flash_attention_ref"]
+def ssd_scan_ref(x, dt, A, B, C):
+    """Sequential SSD recurrence in float32, one step per position (no D
+    skip -- the kernel computes the core scan only).
+
+    x: [b,S,H,P], dt: [b,S,H], A: [H], B,C: [b,S,N] -> y [b,S,H,P] in x's
+    dtype."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    A = A.float()
+    h = torch.zeros(b, H, N, P, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A)                           # [b, H]
+        h = h * decay[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhnp", dtf[:, t], Bf[:, t], xf[:, t])
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+__all__ = ["flash_attention_ref", "ssd_scan_ref"]

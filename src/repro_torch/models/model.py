@@ -1,6 +1,6 @@
 """Model API: parameters, KV cache, prefill and decode.
 
-Port of `repro/models/model.py` for the dense family. Parameters are the
+Port of `repro/models/model.py` for the dense and ssm families. Parameters are the
 reference's nested dict with stacked [n_layers, ...] leaves, as float32
 tensors; `params_from_reference` carries a tree of the reference's numpy
 arrays across. Entry points run on the card unless the caller passes
@@ -29,10 +29,12 @@ def _map_shapes(shapes, fn, path=()):
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
-    """Random parameters with the reference's distributions: norm scales 1,
-    biases 0, every other leaf N(0, 1) / sqrt(fan_in), fan_in being the
-    second-to-last axis. One generator on ``device``, seeded with ``seed``,
-    draws the leaves in tree order."""
+    """Random parameters with the reference's distributions: norm scales,
+    the SSM's ``out_norm`` and ``D`` 1, biases and ``dt_bias`` 0, ``A_log``
+    log(linspace(1, 16, H)) in every layer, every other leaf
+    N(0, 1) / sqrt(fan_in), fan_in being the second-to-last axis. One
+    generator on ``device``, seeded with ``seed``, draws the random leaves
+    in tree order."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -40,10 +42,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
     def make(path, shape):
         shape = tuple(shape)
         last = path[-1]
-        if last == "scale":
+        if last in ("scale", "out_norm", "D"):
             return torch.ones(shape, device=dev)
-        if last in ("bias", "bq", "bk", "bv", "b_up", "b_down"):
+        if last in ("bias", "bq", "bk", "bv", "b_up", "b_down", "dt_bias"):
             return torch.zeros(shape, device=dev)
+        if last == "A_log":
+            rates = torch.linspace(1.0, 16.0, shape[-1], device=dev)
+            return torch.log(rates).expand(shape).clone()
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         w = torch.randn(shape, generator=gen, device=dev)
         return w.div_(math.sqrt(max(fan_in, 1)))
@@ -63,8 +68,8 @@ def params_from_reference(tree, *, device="cuda") -> dict:
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Total parameter count (embeddings + blocks + head). The dense
-    family has no experts, so ``active_only`` counts the same."""
+    """Total parameter count (embeddings + blocks + head). The dense and
+    ssm families have no experts, so ``active_only`` counts the same."""
     total = 0
 
     def add(path, shape):
@@ -80,25 +85,41 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
-    """The decode cache as meta tensors (shape and dtype, no storage):
-    {"kv": (K, V)}, each [L, B, Smax, Hk, hd], bf16 unless the config's
-    ``kv_dtype`` says otherwise."""
+    """The decode cache as meta tensors (shape and dtype, no storage).
+    Dense: {"kv": (K, V)}, each [L, B, Smax, Hk, hd]. SSM:
+    {"mamba": {"h": [L, B, H, N, P] float32, "conv": [L, B, W-1, conv_ch]}},
+    no KV. bf16 unless the config's ``kv_dtype`` says otherwise."""
     tf.check_supported(cfg)
     dtype = CDT if cfg.kv_dtype == "bfloat16" else getattr(torch,
                                                             cfg.kv_dtype)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        H = d_inner // cfg.ssm_headdim
+        conv_ch = d_inner + 2 * cfg.ssm_state
+        return {"mamba": {
+            "h": torch.empty((L, batch, H, cfg.ssm_state, cfg.ssm_headdim),
+                             dtype=torch.float32, device="meta"),
+            "conv": torch.empty((L, batch, cfg.conv_width - 1, conv_ch),
+                                dtype=dtype, device="meta")}}
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     kv = torch.empty(shape, dtype=dtype, device="meta")
     return {"kv": (kv, kv)}
 
 
+def _zeros_like_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_zeros_like_tree(v, dev) for v in tree)
+    return torch.zeros_like(tree, device=dev)
+
+
 def zero_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device="cuda") -> dict:
-    """A zeroed decode cache {"kv": (K, V)} on ``device``."""
-    dev = resolve_device(device)
-    k, v = abstract_cache(cfg, batch, max_seq)["kv"]
-    return {"kv": (torch.zeros_like(k, device=dev),
-                   torch.zeros_like(v, device=dev))}
+    """A zeroed decode cache (the tree of `abstract_cache`) on ``device``."""
+    return _zeros_like_tree(abstract_cache(cfg, batch, max_seq),
+                            resolve_device(device))
 
 
 def _as_tokens(tokens, params: dict) -> torch.Tensor:
@@ -109,11 +130,22 @@ def _as_tokens(tokens, params: dict) -> torch.Tensor:
 def make_decode_step(cfg: ArchConfig):
     """decode_step(params, cache, tokens [B, 1], cache_len) ->
     (logits [B, V], cache). One new token against the cache; the cache's
-    K/V tensors are updated in place and returned."""
+    tensors (K/V, or the SSM's h and conv) are updated in place and
+    returned. Every batch row advances, as in the reference."""
     tf.check_supported(cfg)
 
     def decode_step(params, cache, tokens, cache_len):
         x = embed(_as_tokens(tokens, params), params["embed"])
+        if cfg.family == "ssm":
+            h_all, conv_all = cache["mamba"]["h"], cache["mamba"]["conv"]
+            for i in range(cfg.n_layers):
+                x, new = tf.mamba_block(
+                    x, tf.layer_params(params["layers"], i), cfg,
+                    cache={"h": h_all[i], "conv": conv_all[i]})
+                h_all[i] = new["h"]
+                conv_all[i] = new["conv"]
+            x = apply_norm(x, params["final_norm"], cfg.norm)
+            return tf.logits_from_hidden(params, x, cfg)[:, 0, :], cache
         positions = torch.full((1, 1), int(cache_len), dtype=torch.int64,
                                device=x.device)
         if cfg.pos == "learned":
@@ -135,9 +167,9 @@ def make_decode_step(cfg: ArchConfig):
 def make_prefill(cfg: ArchConfig):
     """prefill(params, batch) -> (logits_last [B, V], hidden [B, S, d]).
 
-    The full-context forward: every layer's attention is one launch of the
-    flash-attention kernel on the card. It builds no cache, as in the
-    reference (its serving engine steps prompts token by token)."""
+    The full-context forward: every layer's attention (dense) or SSD scan
+    (ssm) is one launch of its kernel on the card. It builds no cache, as in
+    the reference (its serving engine steps prompts token by token)."""
     tf.check_supported(cfg)
 
     def prefill(params, batch):

@@ -1,15 +1,17 @@
-"""LM assembly for the dense family (attention + MLP blocks).
+"""LM assembly for the dense family (attention + MLP blocks) and the SSM
+family (Mamba2 mixer blocks).
 
-Port of `repro/models/transformer.py`, dense family: tinyllama-1.1b and the
-other dense configs without a sliding window (granite, chatglm3, qwen2).
-Parameters are stacked with a leading [n_layers] axis, as in the
-reference; `decoder_forward` walks the layers with a Python loop (no
-activation checkpointing: the port runs forward passes only). Prefill
-attention goes through the flash-attention kernel; decode attends to the
-KV cache, which `self_attention` updates in place.
+Port of `repro/models/transformer.py`, dense and ssm families:
+tinyllama-1.1b and the other dense configs without a sliding window
+(granite, chatglm3, qwen2), and mamba2-130m. Parameters are stacked with a
+leading [n_layers] axis, as in the reference; `decoder_forward` walks the
+layers with a Python loop (no activation checkpointing: the port runs
+forward passes only). Prefill attention goes through the flash-attention
+kernel and the SSM prefill scan through the SSD-scan kernel; decode
+attends to the KV cache, which `self_attention` updates in place.
 
-The MoE, SSM, hybrid and encoder-decoder families, sliding windows and
-modality frontends are not ported yet: `check_supported` refuses them.
+The MoE, hybrid and encoder-decoder families, sliding windows and modality
+frontends are not ported yet: `check_supported` refuses them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -29,10 +32,10 @@ from repro_torch.models.layers import (
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for what the port's model does not run."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the 'dense' family only, not "
-            f"{cfg.family!r} (MoE, SSM, hybrid and audio wait for later "
+            f"{cfg.name}: the port runs the 'dense' and 'ssm' families only, "
+            f"not {cfg.family!r} (MoE, hybrid and audio wait for later "
             f"slices)")
     for flag, value in (("enc_dec", cfg.enc_dec), ("frontend", cfg.frontend),
                         ("window", cfg.window)):
@@ -65,6 +68,13 @@ def attn_param_shapes(cfg: ArchConfig) -> dict:
 def block_param_shapes(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {
+            "norm_m": _norm_shapes(d, cfg.norm),
+            "mamba": ssm_mod.mamba_param_shapes(
+                d, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                n_state=cfg.ssm_state, conv_width=cfg.conv_width),
+        }
     return {
         "ln1": _norm_shapes(d, cfg.norm),
         "attn": attn_param_shapes(cfg),
@@ -160,6 +170,15 @@ def dense_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     return x, new_cache
 
 
+def mamba_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, cache=None):
+    """Returns (x, new_cache) -- new_cache {"h", "conv"} when decoding."""
+    h = apply_norm(x, p["norm_m"], cfg.norm)
+    y, new_cache = ssm_mod.mamba_mixer(
+        h, p["mamba"], expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+        n_state=cfg.ssm_state, chunk=cfg.ssm_chunk, cache=cache)
+    return x + y, new_cache
+
+
 # ---------------------------------------------------------------------------
 # full forward passes
 # ---------------------------------------------------------------------------
@@ -174,8 +193,11 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
         x = x + params["pos_embed"][pos_offset:pos_offset + S].to(
             x.dtype)[None]
     for i in range(cfg.n_layers):
-        x, _ = dense_block(x, layer_params(params["layers"], i), cfg,
-                           positions)
+        lp = layer_params(params["layers"], i)
+        if cfg.family == "ssm":
+            x, _ = mamba_block(x, lp, cfg)
+        else:
+            x, _ = dense_block(x, lp, cfg, positions)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 
@@ -192,6 +214,7 @@ __all__ = [
     "layer_params",
     "self_attention",
     "dense_block",
+    "mamba_block",
     "decoder_forward",
     "logits_from_hidden",
 ]

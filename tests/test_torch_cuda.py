@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, card
-runs of the cluster against CPU runs, bit for bit, and the LM path through
-the flash-attention kernel against the same path on its plain version.
+runs of the cluster against CPU runs, bit for bit, and the LM paths through
+the flash-attention and SSD-scan kernels against the same paths on their
+plain versions.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -16,6 +17,7 @@ from repro_torch.core import VectorizedConfig, make_cluster
 from repro_torch.kernels import dom_admit as admit_mod
 from repro_torch.kernels import dom_release as release_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.sim.network import NetworkParams
 from repro_torch.sim.workload import Workload, WorkloadDriver
 
@@ -201,6 +203,109 @@ def test_lm_prefill_through_the_kernel_matches_the_plain_path(dev):
         want, _ = prefill(params, {"tokens": tokens})
     finally:
         fa_mod.flash_attention_cuda = saved
+    scale = float(want.float().abs().max().cpu())
+    err = float((logits.float() - want.float()).abs().max().cpu())
+    assert torch.isfinite(hidden).all()
+    assert err <= scale * 2 ** -5
+
+
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+
+
+def _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((b, S, H, P), dtype=np.float32))
+    dt = torch.as_tensor(np.abs(rng.standard_normal((b, S, H),
+                                                    dtype=np.float32)) * 0.3
+                         + 0.01)
+    A = torch.as_tensor(-np.abs(rng.standard_normal(H, dtype=np.float32))
+                        - 0.1)
+    B = torch.as_tensor(rng.standard_normal((b, S, N), dtype=np.float32))
+    C = torch.as_tensor(rng.standard_normal((b, S, N), dtype=np.float32))
+    return (x.to(dev, dtype), dt.to(dev, dt_dtype), A.to(dev),
+            B.to(dev, dtype), C.to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype,dt_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("b,S,H,P,N,chunk", [
+    (2, 64, 3, 4, 8, 16),             # tests/test_kernels.py:51-55
+    (1, 40, 2, 8, 4, 16),
+    (2, 128, 4, 16, 16, 32),
+    (2, 333, 24, 64, 128, 128),       # ragged tail at mamba2-130m's heads
+    (1, 32, 24, 64, 128, 128),        # S < chunk: one chunk of 32
+    (1, 300, 5, 40, 16, 64),          # P not a multiple of 16
+])
+def test_ssd_scan_kernel_equals_plain(dev, dtype, dt_dtype, b, S, H, P, N,
+                                      chunk):
+    x, dt, A, B, C = _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=S)
+    y, h = ssd_mod.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    y_want, h_want = ssd_mod.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape
+    assert h.dtype == torch.float32 and h.shape == (b, H, N, P)
+    tol = SSD_TOL[dtype]
+    assert torch.allclose(y.float(), y_want.float(), atol=tol, rtol=tol)
+    assert torch.allclose(h, h_want, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_takes_the_mixers_strided_views(dev):
+    """x, B and C as `mamba_mixer` hands them over: views into one
+    [b, S, d_inner + 2N] tensor, no copies."""
+    b, S, H, P, N = 2, 200, 4, 16, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    xbc = torch.randn(b, S, H * P + 2 * N, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(b, S, H, P)
+    B, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.rand(b, S, H, generator=gen, device=dev) * 0.3 + 0.01
+    A = -torch.rand(H, generator=gen, device=dev) - 0.1
+    assert not x.is_contiguous() and not B.is_contiguous()
+    y, h = ssd_mod.ssd_scan_cuda(x, dt, A, B, C, chunk=64)
+    y_want, h_want = ssd_mod.ssd_scan_plain(x, dt, A, B, C, chunk=64)
+    assert torch.allclose(y.float(), y_want.float(), atol=5e-2, rtol=5e-2)
+    assert torch.allclose(h, h_want, atol=5e-2, rtol=5e-2)
+
+
+def test_ssd_scan_wrapper_launches_on_cuda_tensors(dev):
+    x, dt, A, B, C = _ssd_inputs(dev, 1, 300, 2, 16, 16, torch.bfloat16,
+                                 torch.float32)
+    before = ssd_mod.launches
+    ssd_mod.ssd_scan(x, dt, A, B, C, chunk=16)
+    assert ssd_mod.launches == before + 1
+    with pytest.raises(ValueError):           # chunks above 128 (Q 256)
+        ssd_mod.ssd_scan(x, dt, A, B, C, chunk=256)
+    with pytest.raises(ValueError):           # no silent copy of a strided x
+        ssd_mod.ssd_scan(x.transpose(2, 3), dt, A, B, C)
+    assert ssd_mod.launches == before + 1
+
+
+def test_ssm_prefill_through_the_kernel_matches_the_plain_path(dev):
+    """A 2-layer model at mamba2-130m's head layout (H 24, P 64, N 128,
+    chunk 128): 2 launches per prefill, and the logits agree with the same
+    prefill on the plain scan within bf16 noise (2^-5 of the largest
+    logit)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import init_params, make_prefill
+
+    cfg = smoke_config("mamba2-130m", n_layers=2, d_model=768, vocab=1024,
+                       ssm_state=128, ssm_headdim=64, ssm_chunk=128)
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 300)), device=dev)
+    prefill = make_prefill(cfg)
+    before, fa_before = ssd_mod.launches, fa_mod.launches
+    logits, hidden = prefill(params, {"tokens": tokens})
+    assert ssd_mod.launches == before + cfg.n_layers
+    assert fa_mod.launches == fa_before
+    saved = ssd_mod.ssd_scan_cuda
+    ssd_mod.ssd_scan_cuda = ssd_mod.ssd_scan_plain
+    try:
+        want, _ = prefill(params, {"tokens": tokens})
+    finally:
+        ssd_mod.ssd_scan_cuda = saved
     scale = float(want.float().abs().max().cpu())
     err = float((logits.float() - want.float()).abs().max().cpu())
     assert torch.isfinite(hidden).all()

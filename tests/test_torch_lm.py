@@ -1,5 +1,6 @@
 """The port's LM slice (repro_torch configs, layers, model, serving) against
-the reference's, at `smoke_config("tinyllama-1.1b")`.
+the reference's, at `smoke_config("tinyllama-1.1b")` (dense family) and
+`smoke_config("mamba2-130m")` (ssm family: N 16, P 16, chunk 16).
 
 Both packages get the same parameters (the reference's `init_params`,
 carried across with `params_from_reference`) and the same numpy-seeded
@@ -85,14 +86,15 @@ def test_configs_are_the_references():
 
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen2-7b",
-                                  "granite-20b", "chatglm3-6b"])
+                                  "granite-20b", "chatglm3-6b",
+                                  "mamba2-130m"])
 def test_count_params_equals_the_references(name):
     assert tm.count_params(get_config(name)) == \
         jm.count_params(j_get_config(name))
     assert get_config(name).n_params() == j_get_config(name).n_params()
 
 
-@pytest.mark.parametrize("name", ["mamba2-130m", "hymba-1.5b", "dbrx-132b",
+@pytest.mark.parametrize("name", ["hymba-1.5b", "dbrx-132b",
                                   "seamless-m4t-large-v2",
                                   "phi-3-vision-4.2b"])
 def test_unported_families_are_refused(name):
@@ -290,6 +292,13 @@ def _record(engine):
 
 
 def test_serving_engine_teacher_forced_matches_the_reference(setup):
+    _check_teacher_forced_engine(setup)
+
+
+def _check_teacher_forced_engine(setup):
+    """Both engines admit three prompts and decode to the end; the port's
+    sampled tokens are replaced by the reference's (teacher forcing), and
+    every decode step's logits must agree within bf16 noise."""
     cfg_j, cfg_t, pj, _, pt = setup
     jeng = JServingEngine(cfg_j, pj, n_slots=3, max_seq=48)
     teng = ServingEngine(cfg_t, pt, n_slots=3, max_seq=48)
@@ -369,3 +378,165 @@ def test_model_refuses_a_window_and_names_what_it_runs():
     with pytest.raises(NotImplementedError, match="window"):
         ttf.check_supported(cfg)
     ttf.check_supported(smoke_config(ARCH))
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: mamba2-130m at smoke size
+# ---------------------------------------------------------------------------
+SSM = "mamba2-130m"
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    cfg_j, cfg_t = j_smoke_config(SSM), smoke_config(SSM)
+    pj = jm.init_params(cfg_j, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, pj)
+    pt = tm.params_from_reference(tree, device="cpu")
+    return cfg_j, cfg_t, pj, tree, pt
+
+
+def test_ssm_family_is_accepted_and_the_hybrid_still_refused():
+    ttf.check_supported(smoke_config(SSM))
+    ttf.check_supported(get_config(SSM))
+    assert tm.count_params(get_config(SSM)) == 128_940_480
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        ttf.check_supported(get_config("hymba-1.5b"))
+    with pytest.raises(NotImplementedError):
+        tm.make_prefill(smoke_config("hymba-1.5b"))
+
+
+def test_ssm_params_from_reference_round_trip_every_leaf(ssm_setup):
+    _, _, _, tree, pt = ssm_setup
+    leaves_j = jax.tree_util.tree_leaves_with_path(tree)
+    leaves_t = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), pt))
+    assert [p for p, _ in leaves_j] == [p for p, _ in leaves_t]
+    assert "norm_m" in pt["layers"] and "A_log" in pt["layers"]["mamba"]
+    for (_, a), (_, b) in zip(leaves_j, leaves_t):
+        assert b.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_ssm_init_params_has_the_references_distributions(ssm_setup):
+    cfg_j, cfg_t, pj, _, _ = ssm_setup
+    got = tm.init_params(cfg_t, seed=0, device="cpu")
+    assert jax.tree.map(lambda a: tuple(a.shape), pj) == \
+        jax.tree.map(lambda t: tuple(t.shape), got)
+    m, mj = got["layers"]["mamba"], pj["layers"]["mamba"]
+    # A_log = log(linspace(1, 16, H)) in every layer; D, out_norm 1; dt_bias 0
+    np.testing.assert_allclose(m["A_log"].numpy(), np.asarray(mj["A_log"]),
+                               rtol=0, atol=1e-6)
+    assert m["A_log"].shape[0] == cfg_t.n_layers
+    for name in ("D", "out_norm", "dt_bias"):
+        np.testing.assert_array_equal(m[name].numpy(), np.asarray(mj[name]))
+    assert bool((m["D"] == 1).all()) and not bool(m["dt_bias"].any())
+    w = m["in_proj"]                           # [L, d, e]: fan_in d
+    assert abs(float(w.std()) * cfg_t.d_model ** 0.5 - 1.0) < 0.05
+
+
+def test_ssm_cache_has_the_references_tree(ssm_setup):
+    cfg_j, cfg_t, _, _, _ = ssm_setup
+    cj = jm.zero_cache(cfg_j, 3, 24)
+    ct = tm.zero_cache(cfg_t, 3, 24, device="cpu")
+    assert set(ct) == set(cj) == {"mamba"}
+    for key in ("h", "conv"):
+        a, b = cj["mamba"][key], ct["mamba"][key]
+        assert tuple(b.shape) == a.shape
+        assert str(b.dtype).split(".")[-1] == str(a.dtype)
+        assert not bool(b.any())
+    meta = tm.abstract_cache(cfg_t, 3, 24)["mamba"]["h"]
+    assert meta.device.type == "meta" and meta.dtype == torch.float32
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_ssm_prefill_matches_the_reference(ssm_setup, compute, monkeypatch):
+    if compute == "float32":
+        for mod, val in ((jl, jnp.float32), (jm, jnp.float32),
+                         (tl, torch.float32), (tm, torch.float32)):
+            monkeypatch.setattr(mod, "CDT", val)
+    tokens = _tokens(ssm_setup[0], (2, 37), seed=0)     # ragged: 2 chunks + 5
+    (lj, hj), (lt, ht) = _prefill_both(ssm_setup, tokens)
+    assert lt.shape == (2, ssm_setup[0].vocab)
+    assert ht.shape == (2, 37, ssm_setup[0].d_model)
+    for got, want in ((lt, lj), (ht, hj)):
+        tol = F32_TOL if compute == "float32" else bf16_tol(want)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_ssm_decode_step_matches_the_reference(ssm_setup, compute,
+                                               monkeypatch):
+    if compute == "float32":
+        for mod, val in ((jl, jnp.float32), (jm, jnp.float32),
+                         (tl, torch.float32), (tm, torch.float32)):
+            monkeypatch.setattr(mod, "CDT", val)
+    cfg_j, cfg_t, pj, _, pt = ssm_setup
+    B, steps = 3, 6
+    tokens = _tokens(cfg_j, (B, steps), seed=2)
+    cj = jm.zero_cache(cfg_j, B, 16)
+    ct = tm.zero_cache(cfg_t, B, 16, device="cpu")
+    h_t, conv_t = ct["mamba"]["h"], ct["mamba"]["conv"]
+    step_j = jax.jit(jm.make_decode_step(cfg_j))
+    step_t = tm.make_decode_step(cfg_t)
+    for i in range(steps):
+        lj, cj = step_j(pj, cj, jnp.asarray(tokens[:, i:i + 1]), jnp.int32(i))
+        lt, ct = step_t(pt, ct, torch.as_tensor(tokens[:, i:i + 1]), i)
+        tol = F32_TOL if compute == "float32" else bf16_tol(lj)
+        np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=tol)
+    # the cache was updated in place and returned
+    assert ct["mamba"]["h"] is h_t and ct["mamba"]["conv"] is conv_t
+    for key in ("h", "conv"):
+        a, b = cj["mamba"][key], ct["mamba"][key]
+        tol = F32_TOL if compute == "float32" else bf16_tol(a)
+        np.testing.assert_allclose(_np(b), _np(a), rtol=0, atol=tol)
+
+
+def test_ssm_prefill_last_logits_equal_the_decode_logits(ssm_setup,
+                                                         f32_compute):
+    """Prefill's last position (the chunked scan) and the decode step that
+    feeds the last token (the recurrence) agree on one sequence."""
+    cfg_j, cfg_t, pj, _, pt = ssm_setup
+    tokens = _tokens(cfg_j, (1, 21), seed=3)
+    last, _ = tm.make_prefill(cfg_t)(pt, {"tokens": torch.as_tensor(tokens)})
+    cache = tm.zero_cache(cfg_t, 1, 32, device="cpu")
+    step = tm.make_decode_step(cfg_t)
+    for i in range(tokens.shape[1]):
+        logits, cache = step(pt, cache, torch.as_tensor(tokens[:, i:i + 1]),
+                             i)
+    np.testing.assert_allclose(logits.numpy(), last.numpy(), rtol=0,
+                               atol=F32_TOL)
+
+
+def test_ssm_serving_engine_teacher_forced_matches_the_reference(ssm_setup):
+    _check_teacher_forced_engine(ssm_setup)
+
+
+def test_engine_reproduces_the_references_ssm_state_advance(ssm_setup):
+    """Stepping one slot advances every slot's SSM state
+    (`serving/engine.py:76-83`: the other rows are fed token 0): admitting
+    [9, 10] into slot 1 moves slot 0's h and conv on by two steps of token
+    0, in both packages."""
+    cfg_j, cfg_t, pj, _, pt = ssm_setup
+    jeng = JServingEngine(cfg_j, pj, n_slots=2, max_seq=16)
+    teng = ServingEngine(cfg_t, pt, n_slots=2, max_seq=16)
+    for eng, req in ((jeng, JGenRequest), (teng, GenRequest)):
+        eng.admit(req(seq_id=0, prompt=[5, 6, 7, 8], max_new=2))
+    before = {key: _np(teng.cache["mamba"][key])[:, 0].copy()
+              for key in ("h", "conv")}
+    for eng, req in ((jeng, JGenRequest), (teng, GenRequest)):
+        eng.admit(req(seq_id=1, prompt=[9, 10], max_new=2))
+    # slot 0 alone, stepped on with token 0 twice, lands where it did
+    solo = tm.zero_cache(cfg_t, 1, 16, device="cpu")
+    step = tm.make_decode_step(cfg_t)
+    for i, t in enumerate([5, 6, 7, 8, 0, 0]):
+        _, solo = step(pt, solo, torch.as_tensor([[t]]), i)
+    for key in ("h", "conv"):
+        after_t = _np(teng.cache["mamba"][key])[:, 0]
+        after_j = _np(jeng.cache["mamba"][key])[:, 0]
+        assert not np.array_equal(before[key], after_t)
+        want = _np(solo["mamba"][key])[:, 0]
+        np.testing.assert_allclose(after_t, want, rtol=0, atol=bf16_tol(want))
+        np.testing.assert_allclose(after_t, after_j, rtol=0,
+                                   atol=bf16_tol(after_j))
+    np.testing.assert_array_equal(teng.lengths, [4, 2])
+    np.testing.assert_array_equal(teng.lengths, jeng.lengths)
