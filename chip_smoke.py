@@ -54,7 +54,21 @@ Phases (any failure exits non-zero):
      decode vs prefill; the two comparisons compute in float32 (see
      `LM_KERNELS`: in bf16 this model's own rounding noise exceeds 2^-5),
      and the bf16 kernel-vs-plain figure is printed beside the bf16
-     difference between two exact orders of the plain scan.
+     difference between two exact orders of the plain scan;
+  9. the inchash kernel against its plain version on the card, bit for
+     bit, on a seeded log (deadlines around 1.7e18 ns with full high bits,
+     client ids below 1000, request ids below 2^40, a few negative values)
+     at n in {1, 255, 256, 257, 333, 16384, 1e6, 2^24}, each also against
+     the 32-bit numpy mirror and its XOR accumulate; timed at 16384, 1e6
+     and 2^24 with CUDA events beside the plain version and the byte
+     bound; then the hash path: each replica's durable log from phase 4's
+     card run (deadlines in ns as the replicas round them) hashed through
+     `ops.inchash` on the card with the count reset just before and read
+     just after (one launch a replica), held bit for bit against the same
+     hashes of the CPU run's log on the CPU; the replicas' final prefixes
+     must agree, the last prefix must equal the XOR fold of the entry
+     hashes and must not change when the log is permuted; and the kernel
+     against its plain version on that log, timed.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX or `repro`.
 
@@ -89,6 +103,12 @@ FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:42
 LM_REL_TOL = 2.0 ** -5
 SSD_TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # tests/test_kernels.py:64
 SIZES = (10_000, 100_000, 1_000_000)
+# inchash: the kernel-vs-plain sizes (edges of the 256-entry block scan and
+# the 2048-entry tile, one epoch's padded lanes, a 16.8 s sweep at 1e6
+# req/s) and the timed ones
+INCHASH_SIZES = (1, 255, 256, 257, 333, 16_384, 1_000_000, 1 << 24)
+INCHASH_TIMED = (16_384, 1_000_000, 1 << 24)
+INCHASH_BYTES = 24 + 8          # three int64 read, two uint32 written
 MAIN_N_PAD = 16_384             # pow2 bucket of ~1e4 requests per epoch
 
 
@@ -348,6 +368,76 @@ def check_ssd(dev, b, S, H, P, N, chunk, dtype, dt_dtype=None) -> dict:
     return res
 
 
+def synthetic_log(n: int, seed: int = 0):
+    """A replica log's (deadline_ns, client_id, request_id) columns, int64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = rng.integers(1_600_000_000_000_000_000, 1_800_000_000_000_000_000, n)
+    c = rng.integers(0, 1000, n)
+    r = rng.integers(0, 2 ** 40, n)
+    for col in (d, c, r):
+        neg = rng.random(n) < 0.01
+        col[neg] = -rng.integers(1, 2 ** 62, int(neg.sum()))
+    return d, c, r
+
+
+def check_inchash(dev, cols, timed: bool = False) -> dict:
+    """inchash's kernel == its plain version on the card and == the 32-bit
+    numpy mirror and its XOR accumulate, bit for bit; with ``timed``,
+    kernel and plain times in ms beside the byte bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hashing import entry_hash32_np
+    from repro_torch.kernels import inchash as ih
+
+    n = int(cols[0].shape[0])
+    t = [torch.as_tensor(x, device=dev) for x in cols]
+    got = ih.inchash_cuda(*t)
+    want = ih.inchash_plain(*t)
+    torch.cuda.synchronize()
+    bits = [(a.view(torch.int32).to(torch.int64),
+             b.view(torch.int32).to(torch.int64)) for a, b in zip(got, want)]
+    err = max(int((a - b).abs().max()) for a, b in bits)
+    if not all(torch.equal(a, b) for a, b in bits):
+        raise RuntimeError(f"inchash disagrees with its plain version at "
+                           f"n={n}: max abs err {err}")
+    h_np = entry_hash32_np(*(np.asarray(x).astype(np.uint32) for x in cols))
+    if not (np.array_equal(got[0].cpu().numpy(), h_np)
+            and np.array_equal(got[1].cpu().numpy(),
+                               np.bitwise_xor.accumulate(h_np))):
+        raise RuntimeError(f"inchash disagrees with the numpy mirror at "
+                           f"n={n}")
+    res = {"n": n, "max_abs_err": err}
+    if timed:
+        res.update(ms=time_ms(lambda: ih.inchash_cuda(*t)),
+                   plain_ms=time_ms(lambda: ih.inchash_plain(*t)),
+                   bound_ms=INCHASH_BYTES * n / HBM_BYTES_PER_S * 1e3)
+    return res
+
+
+def log_hash_columns(cols: dict):
+    """A durable log's (deadline_ns, client_id, request_id), the deadline
+    in nanoseconds as the replicas take it: int(round(t * 1e9))."""
+    import numpy as np
+
+    deadline = cols["deadline"]
+    if not np.isfinite(deadline).all():
+        raise RuntimeError("a replica log holds a non-finite deadline")
+    return np.rint(deadline * 1e9).astype(np.int64), cols["cid"], cols["rid"]
+
+
+def replica_log_hashes(cluster, device: str) -> dict:
+    """Each replica's durable log hashed through `ops.inchash` on
+    ``device``: {replica: (h, prefix)} as np.uint32."""
+    from repro_torch.kernels import ops
+
+    return {rep: ops.inchash(*log_hash_columns(cols), device=device)
+            for rep, cols in sorted(cluster.engine.logs.replica_log_columns()
+                                    .items())}
+
+
 # The LM paths of phases 6 and 8: each runs every prefill layer through one
 # kernel, whose module is swapped to its plain version for the comparison,
 # and the compute type of the whole-model comparisons (kernel vs plain,
@@ -388,13 +478,14 @@ def drive_lm_path(dev, arch: str, long_prompt: int = 0) -> dict:
     from repro_torch.kernels import dom_admit as admit_mod
     from repro_torch.kernels import dom_release as release_mod
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import inchash as inchash_mod
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models.model import (count_params, init_params,
                                           make_prefill)
     from repro_torch.serving.engine import GenRequest, ServingEngine
 
     mods = {"flash_attention": fa, "ssd_scan": ssd, "dom_admit": admit_mod,
-            "dom_release": release_mod}
+            "dom_release": release_mod, "inchash": inchash_mod}
     kernel, cmp_dtype = LM_KERNELS[arch]
     mod = mods[kernel]
     cfg = get_config(arch)
@@ -841,6 +932,67 @@ def main() -> int:
           f"compute: last logits max abs err {dv['max_abs_err']:.4g} "
           f"(tolerance {dv['tol']:.4g})")
 
+    # -- 9. the inchash kernel and the hash path --------------------------------
+    from repro_torch.kernels import inchash as inchash_mod
+    from repro_torch.kernels import ops
+
+    print("inchash (kernel vs plain on the card, bit for bit):")
+    ih_rows = []
+    for n in INCHASH_SIZES:
+        r = check_inchash(dev, synthetic_log(n, seed=n),
+                          timed=n in INCHASH_TIMED)
+        ih_rows.append(r)
+        line = f"  n {n}: equal to the plain version and the numpy mirror"
+        if "ms" in r:
+            line += (f", {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                     f"bound {r['bound_ms']:.6f} ms (bytes)")
+        print(line)
+    torch.cuda.empty_cache()
+    inchash_mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_hashes = replica_log_hashes(gpu_cl, "cuda")
+    torch.cuda.synchronize()
+    hash_s = time.perf_counter() - t0
+    ih_launches = inchash_mod.launches
+    cpu_hashes = replica_log_hashes(cpu_cl, "cpu")
+    n_log = {rep: len(h) for rep, (h, _) in card_hashes.items()}
+    print(f"hash path: the replica logs of the phase-4 card run, entries "
+          f"{json.dumps(n_log)}, {ih_launches} inchash launches, wall "
+          f"{hash_s:.4f} s")
+    if ih_launches != len(card_hashes):
+        return fail(f"the hash path launched inchash {ih_launches} times, "
+                    f"not once per replica ({len(card_hashes)})")
+    if card_hashes.keys() != cpu_hashes.keys():
+        return fail("the card and CPU runs have different replicas")
+    for rep, (h, pf) in card_hashes.items():
+        ch, cpf = cpu_hashes[rep]
+        if not (h.dtype == pf.dtype == np.uint32 and len(h) > 0
+                and h.tobytes() == ch.tobytes()
+                and pf.tobytes() == cpf.tobytes()):
+            return fail(f"replica {rep}'s log hashes differ between the "
+                        f"card and the CPU run")
+        if pf[-1] != np.bitwise_xor.reduce(h):
+            return fail(f"replica {rep}'s last prefix is not the XOR fold "
+                        f"of its entry hashes")
+    finals = {int(pf[-1]) for _, pf in card_hashes.values()}
+    if len(finals) != 1:
+        return fail(f"the replicas' final prefixes differ: {finals}")
+    path_cols = log_hash_columns(
+        gpu_cl.engine.logs.replica_log_columns()[0])
+    perm = np.random.default_rng(1).permutation(len(path_cols[0]))
+    _, pf_perm = ops.inchash(*(x[perm] for x in path_cols))
+    if int(pf_perm[-1]) not in finals:
+        return fail("the log's set hash changed when the log was permuted")
+    ih_main = check_inchash(dev, path_cols, timed=True)
+    print(f"  card hashes == the CPU run's, bit for bit; final prefix "
+          f"{finals.pop():#010x} on every replica, equal to the XOR fold and "
+          f"unchanged under a permutation; kernel on the log (n "
+          f"{ih_main['n']}): {ih_main['ms']:.5f} ms, plain "
+          f"{ih_main['plain_ms']:.5f} ms, bound {ih_main['bound_ms']:.6f} ms "
+          f"(bytes); library: none (no single PyTorch call computes an XOR "
+          f"scan)")
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -884,6 +1036,17 @@ def main() -> int:
             "bound_ms", "bound_by")},
         "prefill_32k": {k: ssd_32k[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
+    record["kernels"].append({
+        "name": "inchash", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/inchash.cu",
+        "replaces": "src/repro/kernels/inchash.py:59",
+        "launches": ih_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in ih_rows + [ih_main]),
+        "ms": ih_main["ms"], "plain_ms": ih_main["plain_ms"],
+        "bound_ms": ih_main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "n": ih_main["n"],
+        "sizes": [{k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
+                  for r in ih_rows if "ms" in r]})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ from repro_torch.core.cluster import (
     CommonConfig,
     summarize_commits,
 )
+from repro_torch.core.hashing import IncrementalHash, PerKeyHashTable
 from repro_torch.core.registry import available_clusters, make_cluster
 from repro_torch.core.vectorized_cluster import (
     VectorizedConfig,
@@ -15,4 +16,4 @@ from repro_torch.core.vectorized_cluster import (
 __all__ = ["SUMMARY_REQUIRED_KEYS", "Cluster", "CommonConfig",
            "summarize_commits", "available_clusters", "make_cluster",
            "VectorizedConfig", "VectorizedNezhaCluster",
-           "config_from_reference"]
+           "config_from_reference", "IncrementalHash", "PerKeyHashTable"]

@@ -17,7 +17,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dom_release", "dom_admit", "flash_attention", "ssd_scan")
+SOURCES = ("dom_release", "dom_admit", "flash_attention", "ssd_scan",
+           "inchash")
 TILE = 2048     # elements per tile block, `TILE` in csrc/common.cuh
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -1,15 +1,16 @@
 """Entry points over the CUDA kernels and their plain versions.
 
-Port of `repro/kernels/ops.py` (attention, the SSD scan and the DOM half).
+Port of `repro/kernels/ops.py`.
 `attention` and `ssd_scan` are the dispatches the model's prefill calls: a
 CPU tensor runs the plain version, a CUDA tensor launches the
 flash-attention or the SSD-scan kernel. The DOM tensor forms
 (`dom_admit_device`, `dom_deadline_order_device`; `repro`'s ``*_traced``
 forms) take and return tensors on the caller's device and are what the
 fused epoch body calls: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel. The host entries (`dom_admit`, `dom_deadline_order`)
-take and return numpy arrays and run on ``device`` -- the card unless the
-caller asks for the CPU.
+launches the kernel; so does `inchash_device`, the fast-reply hashes of a
+replica log. The host entries (`dom_admit`, `dom_deadline_order`,
+`inchash`) take and return numpy arrays and run on ``device`` -- the card
+unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels.dom_admit import dom_admit as _admit
 from repro_torch.kernels.dom_release import dom_release
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.inchash import inchash as _inchash
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 
@@ -82,5 +84,22 @@ def dom_deadline_order(deadlines, *, device="cuda") -> np.ndarray:
     return dom_deadline_order_device(dt).cpu().numpy()
 
 
+# Fast-reply hashes: three int64 [n] columns -> (h, prefix) uint32 [n] on
+# the columns' device.
+inchash_device = _inchash
+
+
+def inchash(deadline_ns, client_id, request_id, *,
+            device="cuda") -> tuple[np.ndarray, np.ndarray]:
+    """Host entry: numpy integer columns in (their low 32 bits are hashed),
+    (h, prefix) np.uint32 [n] out."""
+    dev = resolve_device(device)
+    cols = (torch.as_tensor(np.asarray(x).astype(np.int64), device=dev)
+            for x in (deadline_ns, client_id, request_id))
+    h, prefix = _inchash(*cols)
+    return h.cpu().numpy(), prefix.cpu().numpy()
+
+
 __all__ = ["resolve_device", "attention", "ssd_scan", "dom_admit", "dom_admit_device", "dom_release",
-           "dom_deadline_order", "dom_deadline_order_device"]
+           "dom_deadline_order", "dom_deadline_order_device", "inchash",
+           "inchash_device"]

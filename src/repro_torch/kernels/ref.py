@@ -1,13 +1,14 @@
-"""Oracles for the port's LM kernels.
+"""Oracles for the port's LM and hash kernels.
 
-Port of the attention and SSD parts of `repro/kernels/ref.py`: the
-correctness references that the kernel tests hold `flash_attention` and
-`ssd_scan` against.
+Port of the attention, SSD and hash parts of `repro/kernels/ref.py`: the
+correctness references that the kernel tests hold `flash_attention`,
+`ssd_scan` and `inchash` against.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hashing import entry_hash32_torch, prefix_hashes_torch
 from repro_torch.models.attention import reference_attention
 
 
@@ -36,4 +37,11 @@ def ssd_scan_ref(x, dt, A, B, C):
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
-__all__ = ["flash_attention_ref", "ssd_scan_ref"]
+def inchash_ref(deadline_ns, client_id, request_id):
+    """Per-entry 32-bit hashes + prefix XOR folds (fast-reply hashes), as
+    int64 tensors holding the 32-bit patterns."""
+    h = entry_hash32_torch(deadline_ns, client_id, request_id)
+    return h, prefix_hashes_torch(h)
+
+
+__all__ = ["flash_attention_ref", "ssd_scan_ref", "inchash_ref"]

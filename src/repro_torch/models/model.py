@@ -149,8 +149,8 @@ def make_decode_step(cfg: ArchConfig):
         positions = torch.full((1, 1), int(cache_len), dtype=torch.int64,
                                device=x.device)
         if cfg.pos == "learned":
-            at = int(cache_len)
-            x = x + params["pos_embed"][at:at + 1].to(x.dtype)[None]
+            x = x + tf.learned_positions(params["pos_embed"], int(cache_len),
+                                         1).to(x.dtype)[None]
         k_all, v_all = cache["kv"]
         for i in range(cfg.n_layers):
             x, _ = tf.dense_block(x, tf.layer_params(params["layers"], i),

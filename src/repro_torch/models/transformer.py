@@ -182,6 +182,19 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, cache=None):
 # ---------------------------------------------------------------------------
 # full forward passes
 # ---------------------------------------------------------------------------
+def learned_positions(table: torch.Tensor, start: int,
+                      size: int) -> torch.Tensor:
+    """Rows [start, start + size) of the position table, with the start
+    clamped into [0, rows - size] as the reference's
+    `jax.lax.dynamic_slice_in_dim` clamps it: past the table, the last
+    ``size`` rows."""
+    rows = table.shape[0]
+    if size > rows:
+        raise ValueError(f"{size} positions asked of a table of {rows}")
+    start = min(max(start, 0), rows - size)
+    return table[start:start + size]
+
+
 def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                     pos_offset: int = 0) -> torch.Tensor:
     """Prefill forward over [b, S] tokens. Returns hidden [b, S, d]."""
@@ -190,7 +203,7 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     S = x.shape[1]
     positions = (torch.arange(S, device=x.device) + pos_offset)[None, :]
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][pos_offset:pos_offset + S].to(
+        x = x + learned_positions(params["pos_embed"], pos_offset, S).to(
             x.dtype)[None]
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
@@ -215,6 +228,7 @@ __all__ = [
     "self_attention",
     "dense_block",
     "mamba_block",
+    "learned_positions",
     "decoder_forward",
     "logits_from_hidden",
 ]

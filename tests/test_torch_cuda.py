@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, card
-runs of the cluster against CPU runs, bit for bit, and the LM paths through
+runs of the cluster against CPU runs, bit for bit, the LM paths through
 the flash-attention and SSD-scan kernels against the same paths on their
-plain versions.
+plain versions, and the inchash kernel against its plain version and the
+32-bit numpy mirror, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -14,9 +15,13 @@ import pytest
 import torch
 
 from repro_torch.core import VectorizedConfig, make_cluster
+from repro_torch.core.hashing import entry_hash32_np
+from repro_torch.kernels import build
 from repro_torch.kernels import dom_admit as admit_mod
 from repro_torch.kernels import dom_release as release_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import inchash as inchash_mod
+from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.sim.network import NetworkParams
 from repro_torch.sim.workload import Workload, WorkloadDriver
@@ -310,3 +315,97 @@ def test_ssm_prefill_through_the_kernel_matches_the_plain_path(dev):
     err = float((logits.float() - want.float()).abs().max().cpu())
     assert torch.isfinite(hidden).all()
     assert err <= scale * 2 ** -5
+
+
+# ---------------------------------------------------------------------------
+# inchash: kernel vs plain version and the numpy mirror, bit for bit
+# ---------------------------------------------------------------------------
+def _log(n, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(1_600_000_000_000_000_000, 1_800_000_000_000_000_000, n)
+    c = rng.integers(0, 1000, n)
+    r = rng.integers(0, 2 ** 40, n)
+    for col in (d, c, r):
+        neg = rng.random(n) < 0.05
+        col[neg] = -rng.integers(1, 2 ** 62, int(neg.sum()))
+    return d, c, r
+
+
+def _bits(x):
+    """A uint32 tensor's patterns as int32 (comparable on every device)."""
+    return x.view(torch.int32)
+
+
+T = inchash_mod.TILE
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 333, T - 1, T, T + 1,
+                               3 * T + 1, 100_003, 1 << 24])
+def test_inchash_kernel_equals_plain(dev, n):
+    d, c, r = _log(n, seed=n)
+    cols = [torch.as_tensor(x, device=dev) for x in (d, c, r)]
+    h, pf = inchash_mod.inchash_cuda(*cols)
+    h_want, pf_want = inchash_mod.inchash_plain(*cols)
+    torch.cuda.synchronize()
+    assert h.dtype == pf.dtype == torch.uint32 and h.shape == (n,)
+    assert torch.equal(_bits(h), _bits(h_want))
+    assert torch.equal(_bits(pf), _bits(pf_want))
+    mirror = entry_hash32_np(*(x.astype(np.uint32) for x in (d, c, r)))
+    np.testing.assert_array_equal(h.cpu().numpy(), mirror)
+    np.testing.assert_array_equal(pf.cpu().numpy(),
+                                  np.bitwise_xor.accumulate(mirror))
+
+
+def test_inchash_takes_strided_columns_and_empty_logs(dev):
+    d, c, r = _log(5000, seed=1)
+    table = torch.as_tensor(np.stack([d, c, r], axis=1), device=dev)
+    cols = [table[:, i] for i in range(3)]
+    assert not cols[0].is_contiguous()
+    before = inchash_mod.launches
+    h, pf = inchash_mod.inchash(*cols)
+    assert inchash_mod.launches == before + 1
+    h_want, pf_want = inchash_mod.inchash_plain(*cols)
+    assert torch.equal(_bits(h), _bits(h_want))
+    assert torch.equal(_bits(pf), _bits(pf_want))
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    h, pf = inchash_mod.inchash(empty, empty, empty)
+    assert h.shape == pf.shape == (0,) and h.dtype == torch.uint32
+    assert inchash_mod.launches == before + 1
+    h, pf = ops.inchash(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                        np.zeros(0, np.int64))
+    assert h.shape == pf.shape == (0,) and h.dtype == np.uint32
+
+
+def test_inchash_host_entry_runs_on_the_card(dev):
+    d, c, r = _log(777, seed=2)
+    before = inchash_mod.launches
+    got = ops.inchash(d, c, r)
+    assert inchash_mod.launches == before + 1
+    want = ops.inchash(d, c, r, device="cpu")
+    for a, b in zip(got, want):
+        assert a.dtype == np.uint32
+        np.testing.assert_array_equal(a, b)
+
+
+class _FailingLaunch:
+    """A library whose launch returns a CUDA error code."""
+
+    def __init__(self):
+        self.inchash_launch = lambda *args: 1          # cudaErrorInvalidValue
+        self.kernel_error_string = lambda code: b"invalid argument"
+
+
+def test_inchash_raises_when_its_build_or_launch_fails(dev, monkeypatch):
+    cols = [torch.as_tensor(x, device=dev) for x in _log(100, seed=3)]
+    before = inchash_mod.launches
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(build, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        inchash_mod.inchash(*cols)
+    monkeypatch.setattr(build, "library", lambda name: _FailingLaunch())
+    with pytest.raises(RuntimeError, match="inchash kernel launch failed"):
+        inchash_mod.inchash(*cols)
+    assert inchash_mod.launches == before

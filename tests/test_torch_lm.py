@@ -357,6 +357,78 @@ def test_engine_reproduces_the_references_cache_overwrite(setup):
     np.testing.assert_array_equal(teng.lengths, [4, 2])
 
 
+def test_engine_reproduces_the_references_slot_reuse(setup):
+    """A released slot admitted again keeps its old length
+    (`serving/engine.py:57, 82` never resets `lengths[slot]`): with one
+    slot, a 4-token prompt and one new token leave length 5, and the next
+    request's 2-token prompt starts there and ends at 7, attending the
+    first request's stale K/V. Both packages, the same logits."""
+    cfg_j, cfg_t, pj, _, pt = setup
+    jeng = JServingEngine(cfg_j, pj, n_slots=1, max_seq=32)
+    teng = ServingEngine(cfg_t, pt, n_slots=1, max_seq=32)
+    seen_j, seen_t = _record(jeng), _record(teng)
+    lengths = []
+    for eng, req in ((jeng, JGenRequest), (teng, GenRequest)):
+        assert eng.admit(req(seq_id=0, prompt=[5, 6, 7, 8], max_new=1))
+        eng.tick()
+        first = eng.lengths.tolist()
+        assert eng.requests[0].done and eng.pool.n_free == 1
+        assert eng.admit(req(seq_id=1, prompt=[9, 10], max_new=1))
+        lengths.append((first, eng.lengths.tolist()))
+    assert lengths == [([5], [7]), ([5], [7])]
+    assert len(seen_t) == len(seen_j) == 7
+    tol = bf16_tol(np.stack(seen_j))
+    for lj, lt in zip(seen_j, seen_t):
+        np.testing.assert_allclose(lt, lj, rtol=0, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def granite():
+    """granite-20b at smoke size: dense, learned positions, max_seq 512."""
+    cfg_j, cfg_t = j_smoke_config("granite-20b"), smoke_config("granite-20b")
+    assert cfg_t.pos == "learned" and cfg_t.max_seq == 512
+    pj = jm.init_params(cfg_j, jax.random.PRNGKey(1))
+    pt = tm.params_from_reference(jax.tree.map(np.asarray, pj), device="cpu")
+    return cfg_j, cfg_t, pj, pt
+
+
+@pytest.mark.parametrize("cache_len", [510, 511, 512, 513])
+def test_decode_past_the_position_table_clamps_as_the_reference(granite,
+                                                               cache_len):
+    """The reference's `dynamic_slice_in_dim` clamps the learned-position
+    row into the table (`repro/models/model.py:154-156`): at cache_len 512
+    and 513 both packages add row 511. One row, a KV cache 520 long filled
+    with the same seeded values in both."""
+    cfg_j, cfg_t, pj, pt = granite
+    cj = jm.zero_cache(cfg_j, 1, 520)
+    shape = cj["kv"][0].shape
+    rng = np.random.default_rng(cache_len)
+    k, v = (rng.standard_normal(shape, dtype=np.float32) for _ in range(2))
+    cj = {"kv": tuple(jnp.asarray(a).astype(jnp.bfloat16) for a in (k, v))}
+    ct = {"kv": tuple(torch.as_tensor(a).to(torch.bfloat16) for a in (k, v))}
+    token = _tokens(cfg_j, (1, 1), seed=cache_len)
+    lj, _ = jm.make_decode_step(cfg_j)(pj, cj, jnp.asarray(token),
+                                       jnp.int32(cache_len))
+    lt, _ = tm.make_decode_step(cfg_t)(pt, ct, torch.as_tensor(token),
+                                       cache_len)
+    assert lt.shape == (1, cfg_t.vocab)
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=bf16_tol(lj))
+
+
+def test_prefill_past_the_position_table_clamps_as_the_reference(granite):
+    """A prefill whose pos_offset + S passes the table takes its last S rows
+    in both packages (`repro/models/transformer.py:264-266`)."""
+    from repro.models.transformer import decoder_forward as j_forward
+
+    cfg_j, cfg_t, pj, pt = granite
+    tokens = _tokens(cfg_j, (1, 8), seed=6)
+    hj, _ = j_forward(pj, jnp.asarray(tokens), cfg_j, pos_offset=508)
+    ht = ttf.decoder_forward(pt, torch.as_tensor(tokens), cfg_t,
+                             pos_offset=508)
+    assert ht.shape == (1, 8, cfg_t.d_model)
+    np.testing.assert_allclose(_np(ht), _np(hj), rtol=0, atol=bf16_tol(hj))
+
+
 def test_slot_pool_and_prefill_write():
     pool = SlotPool(2)
     assert [pool.alloc(7), pool.alloc(8), pool.alloc(9)] == [0, 1, None]
