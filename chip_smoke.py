@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
-  2. build of the CUDA kernels from the checkout's sources (seconds);
+  2. build of the CUDA kernels from the checkout's sources (seconds), with
+     ptxas's registers and spills for each flash_attention instantiation;
   3. each kernel against its plain torch version on the card, exact, on a
      realistic DOM batch (lognormal 60 us one-way delays, 2 % drops,
      deadlines at send + 120 us) at n in {1e4, 1e5, 1e6} and R = 3, timed
@@ -18,19 +19,22 @@ Phases (any failure exits non-zero):
      card with the launch counts reset just before and read just after,
      then the same run on the CPU (plain versions), which must agree bit
      for bit;
-  5. the flash-attention kernel against its plain version on the card at
-     tinyllama-1.1b's prefill shape (B 2, S = Sk = 4096, Hq 32, Hk 4,
-     D 64, causal) in bf16 (tolerance 2e-2) and float32 (2e-5) -- the
-     reference's kernel-test tolerances -- and at small shapes covering
-     non-causal, window, q offset, ragged S and D = 128; timed with CUDA
-     events beside the plain version and `scaled_dot_product_attention`
-     (GQA, causal), and one call at prefill_32k's per-sequence shape
-     (B 1, S 32768; kernel and SDPA only: the plain version's scores do
-     not fit);
+  5. the flash-attention kernels against their plain version on the card
+     at tinyllama-1.1b's prefill shape (B 2, S = Sk = 4096, Hq 32, Hk 4,
+     D 64, causal) in bf16 (tolerance 2e-2; the tensor-core route) and
+     float32 (2e-5; the scalar route) -- the reference's kernel-test
+     tolerances -- and at small shapes covering non-causal, window, q
+     offset, ragged S and D = 128; timed with CUDA events beside the plain
+     version, `scaled_dot_product_attention` (GQA, causal) and, for bf16,
+     the scalar kernel on the same inputs; each timed row prints its route,
+     TFLOP/s of the visible pairs, share of the bound and ratio to SDPA;
+     and one call at prefill_32k's per-sequence shape (B 1, S 32768;
+     kernel and SDPA only, the last 256 rows against the plain version);
   6. the LM path at tinyllama-1.1b's full width (22 layers, d 2048,
      random weights from seed 0): `make_prefill` on B = 2 prompts of 4096
      tokens with the launch counts reset just before and read just after
-     (22 launches of flash_attention per call); the same prefill at B 1,
+     (22 launches of flash_attention per call, all on the tensor-core
+     route); the same prefill at B 1,
      S 2048 through the kernel and through its plain version, whose last
      logits must agree within 2^-5 of the largest logit; the
      continuous-batching `ServingEngine` (4 slots, max_seq 256) answering
@@ -83,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -110,6 +115,24 @@ INCHASH_SIZES = (1, 255, 256, 257, 333, 16_384, 1_000_000, 1 << 24)
 INCHASH_TIMED = (16_384, 1_000_000, 1 << 24)
 INCHASH_BYTES = 24 + 8          # three int64 read, two uint32 written
 MAIN_N_PAD = 16_384             # pow2 bucket of ~1e4 requests per epoch
+
+
+def ptxas_summary(log: str, names: tuple[str, ...]) -> list[str]:
+    """Registers and spills of each kernel instantiation whose mangled name
+    holds one of ``names``, from nvcc's -Xptxas=-v output."""
+    import re
+
+    rows, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if any(n in m.group(1) for n in names) else None
+        elif entry and "spill stores" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            rows.append(f"{entry}: {line.split(':', 1)[1].strip()}; {spill}")
+            entry = None
+    return rows
 
 
 def fail(msg: str) -> int:
@@ -252,6 +275,18 @@ def sdpa_call(q, k, v, causal: bool):
                                                   enable_gqa=True)
 
 
+def fa_smem() -> dict:
+    """Dynamic shared memory of a tensor-core attention block, by D."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    fn = build.library("flash_attention").flash_attention_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return {D: fn(D) for D in HEAD_DIMS}
+
+
 def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
                     window=None, q_offset=0, timed=False) -> dict:
     """flash_attention's kernel == its plain version within the tolerance
@@ -273,7 +308,8 @@ def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
         raise RuntimeError(f"flash_attention disagrees with its plain "
                            f"version at {shape}: max abs err {err}")
     del want
-    res = {"shape": shape, "max_abs_err": err}
+    res = {"shape": shape, "max_abs_err": err,
+           "route": fa.kernel_route(dt)}
     if timed:
         bound, by = attention_bound_ms(B, S, Sk, Hq, Hk, D, dtype, causal,
                                        window, q_offset)
@@ -284,8 +320,43 @@ def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
                    plain_ms=time_ms(
                        lambda: fa.flash_attention_plain(q, k, v, **kw), 5),
                    bound_ms=bound, bound_by=by, library_ms=lib)
+        res.update(attention_rates(res, B, S, Sk, Hq, D, causal, window,
+                                   q_offset))
+        if res["route"] == "tensor_core":
+            # the scalar kernel on the same bf16 inputs, for comparison
+            res["scalar_ms"] = time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, scalar=True, **kw))
     torch.cuda.empty_cache()
     return res
+
+
+def attention_rates(res: dict, B, S, Sk, Hq, D, causal, window=None,
+                    q_offset=0) -> dict:
+    """TFLOP/s of the visible pairs, share of the bound and ratio to SDPA
+    of a timed attention row."""
+    from repro_torch.kernels.flash_attention import attention_flops
+
+    flops = attention_flops(B, S, Sk, Hq, D, causal=causal, window=window,
+                            q_offset=q_offset)
+    lib = res.get("library_ms")
+    return {"tflops": flops / res["ms"] / 1e9,
+            "bound_share": res["bound_ms"] / res["ms"],
+            "vs_library": res["ms"] / lib if lib else None}
+
+
+def attention_line(r: dict) -> str:
+    """One printed row of phase 5's timings."""
+    line = (f"{r['route']} route, {r['ms']:.4f} ms, {r['tflops']:.1f} "
+            f"TFLOP/s, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+            f"share {r['bound_share']:.3f})")
+    if r.get("library_ms") is not None:
+        line += (f", sdpa {r['library_ms']:.4f} ms (kernel/sdpa "
+                 f"{r['vs_library']:.3f})")
+    if "plain_ms" in r:
+        line += f", plain {r['plain_ms']:.4f} ms"
+    if "scalar_ms" in r:
+        line += f", scalar kernel on the same bf16 {r['scalar_ms']:.4f} ms"
+    return line
 
 
 def time_prefill_32k(dev) -> dict:
@@ -300,9 +371,11 @@ def time_prefill_32k(dev) -> dict:
     q, k, v = attention_inputs(dev, B, S, S, Hq, Hk, D, torch.bfloat16)
     bound, by = attention_bound_ms(B, S, S, Hq, Hk, D, "bfloat16", True)
     out = {"shape": f"B{B} S{S} Hq{Hq} Hk{Hk} D{D} bfloat16 causal",
+           "route": fa.kernel_route(q.dtype),
            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), 3),
            "library_ms": time_ms(sdpa_call(q, k, v, True), 3),
            "bound_ms": bound, "bound_by": by}
+    out.update(attention_rates(out, B, S, S, Hq, D, True))
     got = fa.flash_attention_cuda(q[:, -256:].contiguous(), k, v,
                                   q_offset=S - 256)
     tail = fa.flash_attention_plain(q[:, -256:], k, v, q_offset=S - 256)
@@ -505,11 +578,18 @@ def drive_lm_path(dev, arch: str, long_prompt: int = 0) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
+    fa.launches_tensor_core = fa.launches_scalar = 0
     t0 = time.perf_counter()
     logits, hidden = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     out["launches"] = {name: m.launches for name, m in mods.items()}
+    out["attention_routes"] = {"tensor_core": fa.launches_tensor_core,
+                               "scalar": fa.launches_scalar}
+    if kernel == "flash_attention" and out["attention_routes"] != {
+            "tensor_core": cfg.n_layers, "scalar": 0}:
+        raise RuntimeError(f"the bf16 prefill did not run every layer on the "
+                           f"tensor cores: {out['attention_routes']}")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if out["launches"][kernel] != cfg.n_layers:
         raise RuntimeError(f"prefill launched {kernel} "
@@ -761,9 +841,14 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    per_source = build.build_all(extra_flags=("-Xptxas=-v",))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        per_source = build.build_all(extra_flags=("-Xptxas=-v",))
+    print(log.getvalue(), end="")
     print(f"build: {time.perf_counter() - t0:.1f} s "
           + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
+    for line in ptxas_summary(log.getvalue(), ("fa_tc", "flash_attention")):
+        print(f"  ptxas {line}")
 
     rate, duration = 1e6, 0.2
     if args.profile:
@@ -839,13 +924,13 @@ def main() -> int:
     # -- 5. flash attention vs its plain version ---------------------------
     print("flash_attention (kernel vs plain on the card):")
     fa_main = {}
+    print(f"  tensor-core blocks: dynamic shared memory "
+          f"{json.dumps(fa_smem())} bytes by head dim")
     for dtype in ("bfloat16", "float32"):
         r = check_attention(dev, 2, 4096, 4096, 32, 4, 64, dtype, timed=True)
         fa_main[dtype] = r
         print(f"  {r['shape']}: err {r['max_abs_err']:.3g}, "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), sdpa "
-              f"{r['library_ms']:.4f} ms")
+              f"{attention_line(r)}")
     for dtype in ("bfloat16", "float32"):
         for B, S, Sk, Hq, Hk, D, causal, window, q_offset in (
                 (2, 1000, 1000, 32, 4, 64, False, None, 0),
@@ -855,19 +940,20 @@ def main() -> int:
                 (1, 37, 2049, 32, 4, 64, True, None, 2012)):
             r = check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal,
                                 window, q_offset)
-            print(f"  {r['shape']}: err {r['max_abs_err']:.3g}")
+            print(f"  {r['shape']}: err {r['max_abs_err']:.3g} "
+                  f"({r['route']} route)")
     p32k = time_prefill_32k(dev)
-    print(f"  prefill_32k {p32k['shape']}: {p32k['ms']:.3f} ms, sdpa "
-          f"{p32k['library_ms']:.3f} ms, bound {p32k['bound_ms']:.3f} ms "
-          f"({p32k['bound_by']}), last 256 rows err "
-          f"{p32k['tail_max_abs_err']:.3g}")
+    print(f"  prefill_32k {p32k['shape']}: {attention_line(p32k)}, last "
+          f"256 rows err {p32k['tail_max_abs_err']:.3g}")
 
     # -- 6. the LM path at full width ----------------------------------------
     lm = drive_lm_path(dev, "tinyllama-1.1b")
     print(f"tinyllama-1.1b ({lm['params']} parameters, init "
           f"{lm['init_s']:.2f} s): prefill B2 x S4096 {lm['prefill_s']:.4f} s "
           f"({2 * 4096 / lm['prefill_s']:.0f} tokens/s), launches "
-          f"{json.dumps(lm['launches'])}, peak {lm['peak_gb']:.2f} GB")
+          f"{json.dumps(lm['launches'])} (flash_attention by route "
+          f"{json.dumps(lm['attention_routes'])}), peak "
+          f"{lm['peak_gb']:.2f} GB")
     pv, dv, sv = lm["prefill_vs_plain"], lm["decode_vs_prefill"], lm["serve"]
     print(f"  prefill B1 x S2048, kernel vs plain attention: last logits "
           f"max abs err {pv['max_abs_err']:.4g} (largest logit "
@@ -1016,11 +1102,15 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"],
+        "shape": r["shape"], "kernel_route": r["route"],
+        "launches_by_route": lm["attention_routes"],
+        "tflops": r["tflops"], "scalar_bf16_ms": r["scalar_ms"],
         "float32": {k: fa_main["float32"][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+            "route", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "library_ms")},
         "prefill_32k": {k: p32k[k] for k in (
-            "ms", "library_ms", "bound_ms")}})
+            "ms", "library_ms", "bound_ms", "tflops",
+            "tail_max_abs_err")}})
     r = ssd_main["bfloat16"]
     record["kernels"].append({
         "name": "ssd_scan", "route": "cuda",

@@ -1,34 +1,55 @@
 // flash_attention: forward attention with online softmax, for Hopper.
 //
 // Replaces the Pallas kernel `flash_attention_pallas` (body `_fa_kernel`,
-// src/repro/kernels/flash_attention.py:77). q [B, S, Hq, D] attends k, v
-// [B, Sk, Hk, D] (contiguous); query head h reads KV head h / (Hq / Hk).
-// Query row i sits at position i + q_offset. A key is visible when its
-// position is < Sk, and, if causal, <= the query's, and, with a window W,
-// greater than the query's - W. q is scaled by `scale` in float32; scores,
-// the running max m and sum l, and P.V accumulate in float32; masked
-// scores are -1e30 and contribute p = 0, so a row that sees no key comes
-// out 0; out = acc / max(l, 1e-30) in q's type (float32 or bf16).
+// src/repro/kernels/flash_attention.py:77, `pallas_call` at :107). q [B, S,
+// Hq, D] attends k, v [B, Sk, Hk, D] (contiguous); query head h reads KV
+// head h / (Hq / Hk). Query row i sits at position i + q_offset. A key is
+// visible when its position is < Sk, and, if causal, <= the query's, and,
+// with a window W, greater than the query's - W. Scores are scaled by
+// `scale` in float32; the running max m and sum l and P.V accumulate in
+// float32; masked scores contribute p = 0, so a row that sees no key comes
+// out 0; out = acc / max(l, 1e-30) in q's type.
 //
-// Design: one block of 256 threads per (64-row query tile, batch x query
-// head). The block keeps its Q tile (transposed) in shared memory and
-// walks the KV tiles of the causal/window band only (the `lo_dyn..hi_dyn`
-// of the TPU kernel), staging each 64-key K tile (transposed) and V tile
-// in shared memory as float32. Thread (ty, tx) of a 16 x 16 grid owns
-// rows 4ty..4ty+3 of the tile, key columns 4tx..4tx+3 of S, and output
-// columns 4tx.. (+64) of the accumulator; row max and sum reduce over the
-// 16 threads of a half-warp with shuffles. Products are scalar float32
-// FMAs from float4 shared-memory reads. Ragged S and Sk are masked in the
-// kernel (no padding copies).
+// Bound on this card: operations. The work is 4 D FLOPs per visible
+// (query, key) pair -- 4 B Hq S Sk D, about half of that when causal --
+// against 989 TFLOP/s bf16 dense on the tensor cores; q, k, v and the
+// output are read and written once in far less time (at tinyllama's
+// prefill shape 75.5 MB, 0.023 ms at 3.35 TB/s, against 137.5 GFLOP,
+// 0.139 ms).
 //
-// Bound on this card: compute. The work is 4 D FLOPs per visible (query,
-// key) pair -- 4 B Hq S Sk D, about half of that when causal -- against
-// 989 TFLOP/s bf16 dense on the tensor cores. This first version uses the
-// float32 pipes (67 TFLOP/s peak) and shared memory for its operands;
-// wgmma, TMA and a warp-specialised pipeline are later work.
+// Two routes, chosen by the wrapper from the inputs' type:
+// - bf16, D 64 or 128: the tensor-core kernel of flash_attention_sm90.cuh.
+//   Only `wgmma` reaches the bf16 rate, so both products run on it from
+//   shared memory that TMA fills asynchronously through a ring of K/V
+//   stages, while two or three consumer warpgroups compute and take turns
+//   at the tensor cores (one's products overlap the others' softmax, and
+//   each warpgroup's softmax of tile i overlaps its own P V of tile i - 1);
+//   the softmax stays in registers on the float32 accumulator, the scale
+//   is applied there (not to q in bf16: 1/sqrt(128) is not a power of 2),
+//   masks are computed only on tiles that cross the diagonal, the window
+//   or Sk, and only the KV tiles of the causal/window band are walked. P
+//   enters the second product rounded to bf16, as the tensor cores take it
+//   (within the 2e-2 tolerance of the reference's bf16 tests).
+// - float32 (and bf16 on request, for comparison): the scalar kernel below.
+//   It stages tiles as float32 in shared memory and does both products
+//   with float32 FMAs (67 TFLOP/s peak). float32 keeps it: the tensor
+//   cores take float32 only as TF32 (10-bit mantissa), which breaks the
+//   2e-5 tolerance of the float32 route.
+//
+// Scalar kernel: one block of 256 threads per (64-row query tile, batch x
+// query head); blockIdx.x is the (batch, head) and blockIdx.y the query
+// tile, the last (the longest causal band) first. The block keeps its Q
+// tile (transposed) in shared memory and walks the KV tiles of the band
+// only, staging each 64-key K tile (transposed) and V tile as float32.
+// Thread (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 of the tile, key
+// columns 4tx..4tx+3 of S, and output columns 4tx.. (+64) of the
+// accumulator; row max and sum reduce over the 16 threads of a half-warp
+// with shuffles. Ragged S and Sk are masked in the kernel (no padding).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -114,8 +135,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Pt = Vs + BK * (D + PAD);                 // [BK][BQ + PAD]
 
   const int n_qt = (S + BQ - 1) / BQ;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);  // long rows first
-  const int bh = blockIdx.y;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);  // long rows first
+  const int bh = blockIdx.x;
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int hk = h / (Hq / Hk);
@@ -259,7 +280,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + BQ - 1) / BQ, B * Hq);
+  const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, Sk, Hq, Hk, causal,
@@ -275,15 +296,18 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 float32, 1 bfloat16. window <= 0: no window. Returns a CUDA
-// error code (0 on success); launches on `stream`, no sync, no allocation.
+// The scalar kernel. dtype: 0 float32, 1 bfloat16. window <= 0: no window.
+// Returns a CUDA error code (0 on success); launches on `stream`, no sync,
+// no allocation.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int S, int Sk, int Hq, int Hk,
                            int D, int dtype, int causal, int window,
                            int q_offset, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || Hq <= 0) return 0;
-  if (Hk <= 0 || Hq % Hk != 0 || B * Hq > 65535)
+  if (Hk <= 0 || Hq % Hk != 0 ||
+      static_cast<long long>(B) * Hq > 0x7FFFFFFFll ||
+      (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
@@ -297,6 +321,38 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
                                       window, q_offset, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of a tensor-core block at head dim D (0 for
+// another D).
+int flash_attention_tc_smem_bytes(int D) {
+  if (D == 64) return fa_tc::smem_bytes<64>();
+  if (D == 128) return fa_tc::smem_bytes<128>();
+  return 0;
+}
+
+// The tensor-core kernel, bf16 only. `q_map` and `kv_map` each hold the
+// 4-D tensor map's dims (D, H, S, B) and byte strides of dims 1-3 of q and
+// of k and v (the wrapper's `tensor_map_args`). Same return convention.
+int flash_attention_tc_launch(const void* q, const void* k, const void* v,
+                              void* out, const unsigned long long* q_map,
+                              const unsigned long long* kv_map, int causal,
+                              int window, int q_offset, float scale,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned long long D = q_map[0];
+  if (q_map[1] == 0 || q_map[2] == 0 || q_map[3] == 0) return 0;
+  if (kv_map[0] != D || kv_map[3] != q_map[3] || kv_map[1] == 0 ||
+      kv_map[2] == 0 || q_map[1] % kv_map[1] != 0 ||
+      q_map[2] > 0x7FFFFFFFull || kv_map[2] > 0x7FFFFFFFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64)
+    return fa_tc::launch<64>(q, k, v, out, q_map, kv_map, causal, window,
+                             q_offset, scale, st);
+  if (D == 128)
+    return fa_tc::launch<128>(q, k, v, out, q_map, kv_map, causal, window,
+                              q_offset, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

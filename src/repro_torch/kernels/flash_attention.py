@@ -1,25 +1,34 @@
-"""Forward flash attention: kernel, plain version, wrapper.
+"""Forward flash attention: kernels, plain version, wrapper.
 
 Port of `repro/kernels/flash_attention.py` (the Pallas kernel
-`flash_attention_pallas`, body `_fa_kernel`). q [B, S, Hq, D] attends
-k, v [B, Sk, Hk, D]; query head h reads KV head h // (Hq / Hk) (GQA).
-q is scaled by 1/sqrt(D) in float32, scores, the running max and sum and
-P.V accumulate in float32, masked scores are -1e30 and contribute p = 0,
-so a row with no visible key comes out 0; the output is
-acc / max(l, 1e-30) in q's dtype. Query position i sits at i + q_offset;
-key positions at or beyond Sk do not exist. Masks: causal (key <= query)
-and a sliding window (query - key < window).
+`flash_attention_pallas`, body `_fa_kernel`, line 77). q [B, S, Hq, D]
+attends k, v [B, Sk, Hk, D]; query head h reads KV head h // (Hq / Hk)
+(GQA). Scores are scaled by 1/sqrt(D) in float32, the running max and sum
+and P.V accumulate in float32, masked scores contribute p = 0, so a row
+with no visible key comes out 0; the output is acc / max(l, 1e-30) in q's
+dtype. Query position i sits at i + q_offset; key positions at or beyond
+Sk do not exist. Masks: causal (key <= query) and a sliding window
+(query - key < window).
 
-The kernel (``csrc/flash_attention.cu``) runs one block per (batch, query
-head, 64-row query tile) and walks only the KV tiles of the causal/window
-band. Its bound on the H100 is compute: 4 B Hq S Sk D FLOPs (about half of
-that when causal) at 989 TFLOP/s bf16 dense; this first version does its
-products with scalar float32 FMAs (67 TFLOP/s peak).
+On the H100 the work is bound by operations: 4 D FLOPs per visible (query,
+key) pair at 989 TFLOP/s bf16 dense, which only the tensor cores reach.
+So a CUDA call takes one of two kernels (``kernel_route``):
+- bf16 (the models' compute type) runs on the tensor cores
+  (``csrc/flash_attention_sm90.cuh``): TMA copies K and V tiles through a
+  ring in shared memory, two or three warpgroups of 64 query rows take
+  turns to run both products with ``wgmma``, and the online softmax stays
+  in registers on the float32 accumulator; the block walks only the KV
+  tiles of the causal/window band. P enters the second product rounded
+  to bf16.
+- float32 keeps the scalar kernel (``csrc/flash_attention.cu``), float32
+  FMAs at 67 TFLOP/s peak: the tensor cores take float32 only as TF32,
+  which breaks the float32 route's 2e-5 tolerance. ``scalar=True`` also
+  runs it on bf16 inputs, to compare the two kernels.
 
 The plain version is the dense O(S Sk) computation of the same function
 (float32 scores [B, Hk, G, S, Sk]). The wrapper dispatches on the
 tensor's device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (or raises).
+launches a kernel (or raises).
 """
 from __future__ import annotations
 
@@ -35,8 +44,11 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the CUDA kernel through `flash_attention` (counted per call).
+# Launches through `flash_attention` (counted per call): of either kernel,
+# and of each route on its own.
 launches = 0
+launches_tensor_core = 0
+launches_scalar = 0
 
 
 def attention_mask(sq: int, sk: int, *, causal: bool, window: Optional[int],
@@ -91,17 +103,39 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v are on different devices")
 
 
+def kernel_route(dtype: torch.dtype, scalar: bool = False) -> str:
+    """The kernel a CUDA call on ``dtype`` inputs takes: bf16 the tensor
+    cores, float32 (or anything with ``scalar``) the scalar kernel."""
+    return "tensor_core" if dtype == torch.bfloat16 and not scalar \
+        else "scalar"
+
+
+def tensor_map_args(t: torch.Tensor) -> tuple[int, ...]:
+    """The 4-D TMA tensor map of a contiguous [B, S, H, D] tensor as the
+    tensor-core launch takes it: the dims innermost first (D, H, S, B),
+    then the byte strides of dims 1-3. A row at or past S lies outside
+    dim 2, so a tile that reaches past the sequence reads zeros there,
+    never the next sequence's rows."""
+    B, S, H, D = t.shape
+    e = t.element_size()
+    return (D, H, S, B, D * e, H * D * e, S * H * D * e)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
-                         q_offset: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
-    global launches
+                         q_offset: int = 0,
+                         scalar: bool = False) -> torch.Tensor:
+    """Launch a CUDA kernel on PyTorch's current stream (no sync): the
+    tensor-core kernel for bf16, the scalar one for float32 or with
+    ``scalar`` (to compare the two on bf16; see `kernel_route`)."""
+    global launches, launches_tensor_core, launches_scalar
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
                         f"not {q.dtype}")
+    which = kernel_route(q.dtype, scalar)
     D = q.shape[3]
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, "
@@ -118,17 +152,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * S * Hq == 0:
         return out
     lib = build.library("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              B, S, Sk, Hq, Hk, D, DTYPES[q.dtype], int(causal),
-              0 if window is None else int(window), int(q_offset),
-              1.0 / math.sqrt(D), stream)
+    masks = (int(causal), 0 if window is None else int(window), int(q_offset))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if which == "tensor_core":
+        fn = lib.flash_attention_tc_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.POINTER(ctypes.c_ulonglong)] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        maps = [(ctypes.c_ulonglong * 7)(*tensor_map_args(t)) for t in (q, k)]
+        fn.restype = ctypes.c_int
+        code = fn(*ptrs, *maps, *masks, 1.0 / math.sqrt(D), stream)
+    else:
+        fn = lib.flash_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        code = fn(*ptrs, B, S, Sk, Hq, Hk, D, DTYPES[q.dtype], *masks,
+                  1.0 / math.sqrt(D), stream)
     build.check(lib, "flash_attention", code)
     launches += 1
+    if which == "tensor_core":
+        launches_tensor_core += 1
+    else:
+        launches_scalar += 1
     return out
 
 
@@ -158,4 +205,5 @@ def attention_flops(B: int, S: int, Sk: int, Hq: int, D: int, *,
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
-           "attention_mask", "attention_flops", "NEG_INF"]
+           "kernel_route", "tensor_map_args", "attention_mask",
+           "attention_flops", "NEG_INF"]

@@ -16,7 +16,9 @@ import torch
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import attention_flops
+from repro_torch.kernels.flash_attention import (attention_flops,
+                                                 kernel_route,
+                                                 tensor_map_args)
 from repro_torch.models import attention as tattn
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -132,3 +134,32 @@ def test_attention_flops_counts_the_visible_pairs():
     # the prefill shape of chip_smoke.py: 137.5 GFLOP
     assert attention_flops(2, 4096, 4096, 32, 64, causal=True) == \
         4 * 2 * 32 * 64 * (4096 * 4097 // 2)
+
+
+@pytest.mark.parametrize("B,S,H,D", [(2, 4096, 4, 64), (1, 65, 5, 128),
+                                     (3, 1, 1, 64)])
+def test_tensor_map_args_address_every_element(B, S, H, D):
+    """The tensor-core kernel's 4-D TMA map (dims D, H, S, B innermost
+    first, byte strides of dims 1-3) addresses each element of a contiguous
+    [B, S, H, D] bf16 tensor where torch keeps it, its dim 2 ends at S (a
+    row past it reads zeros, not the next sequence's), and every stride is
+    a multiple of the 16 bytes TMA requires."""
+    t = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    args = tensor_map_args(t)
+    dims, strides = args[:4], args[4:]
+    assert dims == (D, H, S, B)
+    e = t.element_size()
+    rng = np.random.default_rng(S)
+    for b, s, h, d in zip(rng.integers(0, B, 20), rng.integers(0, S, 20),
+                          rng.integers(0, H, 20), rng.integers(0, D, 20)):
+        offset = d * e + h * strides[0] + s * strides[1] + b * strides[2]
+        want = sum(int(i) * st for i, st in zip((b, s, h, d), t.stride()))
+        assert offset == want * e
+    assert all(st % 16 == 0 for st in strides)
+
+
+def test_kernel_route_by_dtype():
+    assert kernel_route(torch.bfloat16) == "tensor_core"
+    assert kernel_route(torch.float32) == "scalar"
+    assert kernel_route(torch.bfloat16, scalar=True) == "scalar"
+    assert kernel_route(torch.float32, scalar=True) == "scalar"

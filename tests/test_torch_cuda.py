@@ -156,6 +156,22 @@ def _qkv(dev, B, S, Sk, Hq, Hk, D, dtype, seed=0):
     (1, 1, 257, 8, 2, 64, True, None, 256),       # one query at the end
     (1, 40, 200, 4, 2, 64, True, 16, 160),        # q_offset + window
     (1, 16, 16, 4, 2, 64, True, 4, 40),           # rows that see no key
+    # the tensor-core kernel's tile edges (128-row query tiles of two
+    # 64-row warpgroups, 128-key KV tiles)
+    (1, 63, 63, 4, 2, 64, True, None, 0),
+    (1, 64, 64, 8, 2, 128, True, 48, 0),
+    (2, 65, 65, 4, 2, 64, True, None, 0),
+    (1, 127, 127, 8, 1, 128, True, 100, 0),
+    (2, 128, 128, 4, 2, 64, True, None, 0),
+    (1, 129, 129, 4, 4, 128, True, 64, 0),
+    (1, 4095, 4095, 4, 1, 64, True, None, 0),
+    (1, 4095, 4095, 4, 2, 128, True, 1000, 0),
+    (2, 129, 65, 4, 2, 128, False, None, 0),      # non-causal, S > Sk
+    (1, 63, 4095, 8, 2, 128, False, None, 0),     # non-causal, S < Sk
+    # hymba-1.5b's heads (group of 5, window 1024), without and with an
+    # offset into a longer context
+    (1, 2048, 2048, 25, 5, 64, True, 1024, 0),
+    (1, 2048, 4096, 25, 5, 64, True, 1024, 2048),
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, S, Sk, Hq, Hk, D,
                                              causal, window, q_offset):
@@ -182,6 +198,62 @@ def test_flash_attention_wrapper_launches_on_cuda_tensors(dev):
     with pytest.raises(ValueError):           # no silent copy of a strided q
         fa_mod.flash_attention(q.transpose(1, 2), k, v)
     assert fa_mod.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_more_than_65535_heads(dev, dtype):
+    """B x Hq beyond the 65535 a grid's y dimension allows: the (batch,
+    head) index lies on grid.x in both kernels."""
+    q, k, v = _qkv(dev, 2, 3, 3, 33000, 1100, 64, dtype, seed=5)
+    got = fa_mod.flash_attention_cuda(q, k, v)
+    want = fa_mod.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max().cpu()) <= \
+        FA_TOL[dtype]
+
+
+def test_flash_attention_routes_by_dtype(dev):
+    """bf16 launches the tensor-core kernel, float32 the scalar one (each
+    route counts its own launches beside the total); ``scalar=True`` runs
+    the scalar kernel on bf16 and agrees with the tensor cores; an
+    unsupported head dim raises before any launch."""
+    q, k, v = _qkv(dev, 1, 200, 200, 8, 2, 64, torch.bfloat16, seed=7)
+    counts = lambda: (fa_mod.launches, fa_mod.launches_tensor_core,  # noqa: E731
+                      fa_mod.launches_scalar)
+    total, tc, scalar = counts()
+    got_tc = fa_mod.flash_attention(q, k, v)
+    assert counts() == (total + 1, tc + 1, scalar)
+    got_scalar = fa_mod.flash_attention_cuda(q, k, v, scalar=True)
+    assert counts() == (total + 2, tc + 1, scalar + 1)
+    fa_mod.flash_attention(q.float(), k.float(), v.float())
+    assert counts() == (total + 3, tc + 1, scalar + 2)
+    torch.cuda.synchronize()
+    assert float((got_tc.float() - got_scalar.float()).abs().max().cpu()) \
+        <= FA_TOL[torch.bfloat16]
+    with pytest.raises(ValueError):
+        fa_mod.flash_attention(q[..., :32].contiguous(),
+                               k[..., :32].contiguous(),
+                               v[..., :32].contiguous())
+    assert counts() == (total + 3, tc + 1, scalar + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_raises_when_its_build_or_launch_fails(
+        dev, monkeypatch, dtype):
+    q, k, v = _qkv(dev, 1, 64, 64, 4, 2, 64, dtype, seed=9)
+    before = fa_mod.launches
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(build, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fa_mod.flash_attention(q, k, v)
+    monkeypatch.setattr(build, "library", lambda name: _FailingLaunch())
+    with pytest.raises(RuntimeError,
+                       match="flash_attention kernel launch failed"):
+        fa_mod.flash_attention(q, k, v)
+    assert fa_mod.launches == before
 
 
 def test_lm_prefill_through_the_kernel_matches_the_plain_path(dev):
@@ -392,6 +464,8 @@ class _FailingLaunch:
 
     def __init__(self):
         self.inchash_launch = lambda *args: 1          # cudaErrorInvalidValue
+        self.flash_attention_launch = lambda *args: 1
+        self.flash_attention_tc_launch = lambda *args: 1
         self.kernel_error_string = lambda code: b"invalid argument"
 
 
