@@ -6,18 +6,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. build of the CUDA kernels from the checkout's sources (seconds), with
-     ptxas's registers and spills for each flash_attention instantiation;
+     ptxas's registers and spills for each flash_attention instantiation
+     and each kernel of the DOM sort;
   3. each kernel against its plain torch version on the card, exact, on a
      realistic DOM batch (lognormal 60 us one-way delays, 2 % drops,
-     deadlines at send + 120 us) at n in {1e4, 1e5, 1e6} and R = 3, timed
-     with CUDA events beside the plain version and, for dom_release, one
-     stable `torch.sort` of the same keys;
+     deadlines at send + 120 us) at n in {1e4, 1e5, 1e6} and R = 3 and at
+     the main shape (1e4 requests padded to 16384 lanes), and dom_release
+     also on a 2^24-lane backlog; timed with CUDA events per call (eager,
+     and replayed from a CUDA graph, which leaves out the host's work)
+     beside the plain version; each dom_release row prints its route, one
+     stable `torch.sort` of the same keys and the share of the byte bound,
+     and at the main shape the onesweep route on the same inputs;
   4. the main path: `make_cluster("nezha-vectorized")` driven by the
      `WorkloadDriver` -- 3 replicas (f = 1), 1 proxy, 10 ms epochs,
      open-loop Poisson at 1e6 req/s, 50 % reads, Zipf 0.5 over 1 M keys,
      per-key-class commutativity, 0.2 s, K = 16 epoch windows -- on the
-     card with the launch counts reset just before and read just after,
-     then the same run on the CPU (plain versions), which must agree bit
+     card with the launch counts reset just before and read just after
+     (every dom_release call must take the small route), then the same run on the CPU (plain versions), which must agree bit
      for bit;
   5. the flash-attention kernels against their plain version on the card
      at tinyllama-1.1b's prefill shape (B 2, S = Sk = 4096, Hq 32, Hk 4,
@@ -177,16 +182,107 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(dev, n: int, n_pad: int | None = None) -> dict:
-    """Each kernel's wrapper on card tensors (which launches the kernel) ==
-    its plain version on the same tensors, exactly; times in ms."""
+def time_graph_ms(fn, reps: int = 20):
+    """Device time of one call without the host's work around it: `reps`
+    calls captured in one CUDA graph, timed over a replay. None (and a
+    printed reason) when the call cannot be captured."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        print(f"  (graph capture failed, graph time not measured: {exc})")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_release(dev, d_np, *, compare_onesweep: bool = False) -> dict:
+    """dom_release on card tensors == its plain version, exactly, in the
+    engine's use (all admitted, clock at +inf) and a masked drain; timed
+    per call (eager, and replayed from a CUDA graph) beside one stable
+    `torch.sort` of the same keys and the byte bound."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.dom_admit import dom_admit, dom_admit_plain
     from repro_torch.kernels.dom_release import (dom_release,
-                                                 dom_release_plain)
+                                                 dom_release_cuda,
+                                                 dom_release_plain,
+                                                 release_route)
     from repro_torch.kernels.timekeys import time_sort_keys
+
+    m = len(d_np)
+    d = torch.as_tensor(d_np, device=dev)
+    rng = np.random.default_rng(m)
+    drain = torch.as_tensor(rng.random(m) < 0.9, device=dev)
+    now = float(np.quantile(d_np[np.isfinite(d_np)], 0.5))
+    ones = torch.ones(m, dtype=torch.bool, device=dev)
+    inf = float("inf")
+    err = 0
+    for adm, clock in ((ones, inf), (drain, now)):
+        o_k, c_k = dom_release(d, adm, clock)
+        o_p, c_p = dom_release_plain(d, adm, clock)
+        torch.cuda.synchronize()
+        err = max(err, int((o_k.to(torch.int64) - o_p.to(torch.int64))
+                           .abs().max()))
+        if not (torch.equal(o_k, o_p) and int(c_k) == int(c_p)):
+            raise RuntimeError(f"dom_release disagrees with its plain "
+                               f"version at n={m}, now={clock}")
+    keys = time_sort_keys(d)
+    call = lambda: dom_release(d, ones, inf)          # noqa: E731
+    lib = lambda: torch.sort(keys, stable=True)       # noqa: E731
+    out = {
+        "n": m, "route": release_route(m), "max_abs_err": err,
+        "ms": time_ms(call), "graph_ms": time_graph_ms(call),
+        "plain_ms": time_ms(lambda: dom_release_plain(d, ones, inf)),
+        "bound_ms": (9 * m + 4 * m) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": time_ms(lib), "library_graph_ms": time_graph_ms(lib),
+    }
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    if compare_onesweep:                  # the other route, same inputs
+        got = dom_release_cuda(d, ones, inf, route="onesweep")
+        if not torch.equal(got[0], dom_release_plain(d, ones, inf)[0]):
+            raise RuntimeError(f"onesweep route disagrees at n={m}")
+        forced = lambda: dom_release_cuda(d, ones, inf,  # noqa: E731
+                                          route="onesweep")
+        out["onesweep_ms"] = time_ms(forced)
+        out["onesweep_graph_ms"] = time_graph_ms(forced)
+    return out
+
+
+def release_line(r: dict) -> str:
+    """One printed row of phase 3's dom_release timings."""
+    def f(x):
+        return "-" if x is None else f"{x:.4f}"
+    line = (f"dom_release n {r['n']:<8d} route {r['route']:8s} "
+            f"{r['ms']:.4f} ms (graph {f(r['graph_ms'])}), stable torch.sort "
+            f"{r['library_ms']:.4f} (graph {f(r['library_graph_ms'])}), "
+            f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "
+            f"(bytes), share of bound {r['bound_share']:.4f}")
+    if "onesweep_ms" in r:
+        line += (f"; onesweep route on the same inputs {r['onesweep_ms']:.4f}"
+                 f" (graph {f(r['onesweep_graph_ms'])})")
+    return line
+
+
+def check_kernels(dev, n: int, n_pad: int | None = None) -> dict:
+    """Each kernel's wrapper on card tensors (which launches the kernel) ==
+    its plain version on the same tensors, exactly; times in ms."""
+    import torch
+
+    from repro_torch.kernels.dom_admit import dom_admit, dom_admit_plain
 
     d_np, a_np = realistic_batch(n)
     if n_pad is not None:
@@ -202,40 +298,18 @@ def check_kernels(dev, n: int, n_pad: int | None = None) -> dict:
     if not torch.equal(adm_k, adm_p):
         raise RuntimeError(f"dom_admit disagrees with its plain version at "
                            f"n={m}: {int((adm_k != adm_p).sum())} cells")
-    # the engine's use: all admitted, clock at +inf; plus a masked drain
-    rel_in = adm_p[:, 0].contiguous()
-    now = float(np.quantile(d_np[np.isfinite(d_np)], 0.5))
-    release_err = 0
-    for adm, clock in ((torch.ones(m, dtype=torch.bool, device=dev),
-                        float("inf")), (rel_in, now)):
-        o_k, c_k = dom_release(d, adm, clock)
-        o_p, c_p = dom_release_plain(d, adm, clock)
-        torch.cuda.synchronize()
-        release_err = max(release_err, int((o_k.to(torch.int64)
-                                            - o_p.to(torch.int64))
-                                           .abs().max()))
-        if not (torch.equal(o_k, o_p) and int(c_k) == int(c_p)):
-            raise RuntimeError(f"dom_release disagrees with its plain "
-                               f"version at n={m}, now={clock}")
-    ones = torch.ones(m, dtype=torch.bool, device=dev)
-    keys = time_sort_keys(d)
-    inf = float("inf")
     return {
         "n": m, "R": R,
         "dom_admit": {
             "max_abs_err": admit_err,
             "ms": time_ms(lambda: dom_admit(d, a)),
+            "graph_ms": time_graph_ms(lambda: dom_admit(d, a)),
             "plain_ms": time_ms(lambda: dom_admit_plain(d, a)),
             "bound_ms": (8 * m + 8 * R * m + R * m) / HBM_BYTES_PER_S * 1e3,
             "library_ms": None,
         },
-        "dom_release": {
-            "max_abs_err": release_err,
-            "ms": time_ms(lambda: dom_release(d, ones, inf)),
-            "plain_ms": time_ms(lambda: dom_release_plain(d, ones, inf)),
-            "bound_ms": (9 * m + 4 * m) / HBM_BYTES_PER_S * 1e3,
-            "library_ms": time_ms(lambda: torch.sort(keys, stable=True)),
-        },
+        "dom_release": check_release(dev, d_np,
+                                     compare_onesweep=n_pad is not None),
     }
 
 
@@ -847,7 +921,9 @@ def main() -> int:
     print(log.getvalue(), end="")
     print(f"build: {time.perf_counter() - t0:.1f} s "
           + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
-    for line in ptxas_summary(log.getvalue(), ("fa_tc", "flash_attention")):
+    for line in ptxas_summary(log.getvalue(), ("fa_tc", "flash_attention",
+                                               "release_small",
+                                               "onesweep_")):
         print(f"  ptxas {line}")
 
     rate, duration = 1e6, 0.2
@@ -861,23 +937,33 @@ def main() -> int:
     from repro_torch.kernels import dom_admit as admit_mod
     from repro_torch.kernels import dom_release as release_mod
 
-    print("kernel      n        R  ms        plain_ms  bound_ms  library_ms")
-    for n in SIZES:
-        res = check_kernels(dev, n)
-        for name in ("dom_admit", "dom_release"):
-            r = res[name]
-            lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
-                   else "-")
-            print(f"{name:11s} {n:<8d} {res['R']}  {r['ms']:<9.4f} "
-                  f"{r['plain_ms']:<9.4f} {r['bound_ms']:<9.5f} {lib}")
+    print("dom_admit   n        R  ms        graph_ms  plain_ms  bound_ms")
+    rows = [check_kernels(dev, n) for n in SIZES]
     main_shape = check_kernels(dev, 10_000, n_pad=MAIN_N_PAD)
+    for res in rows + [main_shape]:
+        r = res["dom_admit"]
+        g = "-" if r["graph_ms"] is None else f"{r['graph_ms']:.4f}"
+        print(f"dom_admit   {res['n']:<8d} {res['R']}  {r['ms']:<9.4f} "
+              f"{g:9s} {r['plain_ms']:<9.4f} {r['bound_ms']:<9.5f}")
+    big = np.sort(np.random.default_rng(24).uniform(0, 1 << 24, 1 << 24)
+                  / 1e6)                       # a 2^24-lane backlog
+    release_rows = [res["dom_release"] for res in rows] + [
+        check_release(dev, big), main_shape["dom_release"]]
+    for r in release_rows:
+        print(release_line(r))
+    del big
+    torch.cuda.empty_cache()
 
     # -- 4. the main path ----------------------------------------------------------
     admit_mod.launches = 0
     release_mod.launches = 0
+    release_mod.launches_small = 0
+    release_mod.launches_onesweep = 0
     gpu_cl, gpu_sum, gpu_s = drive_main_path("cuda", rate, duration)
     launches = {"dom_admit": admit_mod.launches,
                 "dom_release": release_mod.launches}
+    release_routes = {"small": release_mod.launches_small,
+                      "onesweep": release_mod.launches_onesweep}
     epochs = gpu_sum["epochs"]
     print(f"main path on {torch.cuda.get_device_name(0)}: "
           f"{gpu_sum['n_requests']} requests, {gpu_sum['committed']} "
@@ -885,10 +971,14 @@ def main() -> int:
           f"median {gpu_sum['median_latency'] * 1e6:.1f} us, "
           f"p90 {gpu_sum['p90_latency'] * 1e6:.1f} us, {epochs} epochs "
           f"({gpu_sum['batches']} with requests), wall {gpu_s:.2f} s, "
-          f"launches {json.dumps(launches)}")
+          f"launches {json.dumps(launches)}, dom_release by route "
+          f"{json.dumps(release_routes)}")
     for name, count in launches.items():
         if count <= 0:
             return fail(f"the main path never launched {name}")
+    if release_routes["small"] != launches["dom_release"]:
+        return fail(f"not every main-path dom_release call took the small "
+                    f"route: {json.dumps(release_routes)}")
     cpu_cl, cpu_sum, cpu_s = drive_main_path("cpu", rate, duration)
     print(f"same run on the CPU (plain versions): wall {cpu_s:.2f} s")
     for key, value in gpu_sum.items():
@@ -1086,13 +1176,27 @@ def main() -> int:
             ("dom_release", "src/repro_torch/kernels/csrc/dom_release.cu",
              "src/repro/kernels/dom_release.py:59")):
         r = main_shape[name]
-        record["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
-            "n": main_shape["n"], "R": main_shape["R"]})
+            "graph_ms": r["graph_ms"], "n": main_shape["n"]}
+        if name == "dom_admit":
+            entry["R"] = main_shape["R"]
+            entry["sizes"] = [
+                {"n": res["n"], "R": res["R"], **{k: res[name][k] for k in (
+                    "ms", "graph_ms", "plain_ms", "bound_ms")}}
+                for res in rows]
+        else:
+            entry["kernel_route"] = r["route"]
+            entry["launches_by_route"] = release_routes
+            entry["onesweep_ms"] = r["onesweep_ms"]
+            entry["sizes"] = [{k: x[k] for k in (
+                "n", "route", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "library_ms", "library_graph_ms")} for x in release_rows]
+        record["kernels"].append(entry)
     r = fa_main["bfloat16"]
     record["kernels"].append({
         "name": "flash_attention", "route": "cuda",

@@ -105,6 +105,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(lib: ctypes.CDLL, name: str, argtypes: list):
+    """``lib``'s function ``name``, its argtypes and int restype set on
+    first use (ctypes keeps the function object on the library)."""
+    fn = getattr(lib, name)
+    if getattr(fn, "argtypes", None) is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if code != 0:
@@ -112,4 +122,5 @@ def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({code})")
 
 
-__all__ = ["CSRC", "SOURCES", "TILE", "build_all", "build_dir", "library", "check"]
+__all__ = ["CSRC", "SOURCES", "TILE", "bind", "build_all", "build_dir",
+           "library", "check"]

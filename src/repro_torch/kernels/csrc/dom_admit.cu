@@ -13,15 +13,16 @@
 //              updates with d > a in message order, then for each message
 //              its test followed by its update when d <= a. One integer
 //              exclusive scan of the (d > a) flags gives every position.
-//   2. sort    stably on the time key alone (the shared LSD radix sort):
-//              stability turns aux order into (time, aux) order.
+//   2. sort    stably on the time key alone (the shared onesweep radix
+//              sort of common.cuh, a segment per receiver): stability
+//              turns aux order into (time, aux) order.
 //   3. decide  an inclusive prefix max of the candidate watermark keys --
 //              a tile scan plus an exclusive scan of the tile carries, since
 //              blocks run in no order -- shifted by one, then each test
 //              scatters its verdict back to message order (the TPU's second
 //              bitonic sort existed only to avoid that gather).
 // Bound on this card: memory, at least 8N + 8RN bytes read and RN written;
-// this first version moves far more (eight sort passes over 2RN events).
+// the sort alone moves about 24 bytes per event and pass, over 2RN events.
 #include "common.cuh"
 
 namespace {
@@ -170,12 +171,12 @@ const char* kernel_error_string(int code) {
 }
 
 // deadlines [n] f64, arrivals [n, R] f64 (row-major), admitted [n, R] u8.
-// Scratch: ka, kb [R * 2n] u64; va, vb [R * 2n] u32;
-// hist [R * 256 * ceil(2n / TILE)] u32; tile_count [R * ceil(n / TILE)] u32;
+// Scratch: ka, kb [R * 2n] u64; va, vb [R * 2n] u32; the sort's work area
+// [dom::work_words(2n, R)] u32; tile_count [R * ceil(n / TILE)] u32;
 // early_total [R] u32; tile_max [R * ceil(2n / TILE)] u64.
 int dom_admit_launch(const double* deadlines, const double* arrivals, int n,
                      int R, uint8_t* admitted, uint64_t* ka, uint64_t* kb,
-                     uint32_t* va, uint32_t* vb, uint32_t* hist,
+                     uint32_t* va, uint32_t* vb, uint32_t* work,
                      uint32_t* tile_count, uint32_t* early_total,
                      uint64_t* tile_max, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -192,7 +193,8 @@ int dom_admit_launch(const double* deadlines, const double* arrivals, int n,
   admit_place<<<dim3(ntm, R), THREADS, 0, st>>>(
       deadlines, arrivals, n, R, tile_count, ntm, early_total, ka, va);
   DOM_CHECK_LAUNCH();
-  DOM_CHECK(dom::radix_sort_pairs(ka, kb, va, vb, hist, len, R, st));
+  DOM_CHECK(dom::onesweep_sort(nullptr, nullptr, 0.0, ka, kb, va, vb,
+                               nullptr, nullptr, len, R, work, st));
   admit_tile_max<<<dim3(nte, R), THREADS, 0, st>>>(va, deadlines, len,
                                                    tile_max, nte);
   DOM_CHECK_LAUNCH();

@@ -9,11 +9,12 @@ body `_dom_admit_kernel`). Deadlines [N] f64 and arrivals [N, R] f64
 
 The kernel (``csrc/dom_admit.cu``, grid over tiles x receivers) lays the 2N
 events of each receiver out directly in aux order with one integer scan,
-sorts them stably on the 64-bit time key alone with the radix sort that
-``dom_release`` uses, takes the prefix max as a tile scan plus a scan of
-tile carries, and scatters each test's verdict back to message order. It
-is memory-bound: the least traffic is 8N + 8RN bytes read (deadlines,
-arrivals) and RN written (admitted).
+sorts them stably on the 64-bit time key alone with the onesweep radix
+sort that ``dom_release`` uses above one block (a segment a receiver),
+takes the prefix max as a tile scan plus a scan of tile carries, and
+scatters each test's verdict back to message order. It is memory-bound:
+the least traffic is 8N + 8RN bytes read (deadlines, arrivals) and RN
+written (admitted).
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or raises).
@@ -25,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.dom_release import onesweep_work_words
 
 # Launches of the CUDA kernel through `dom_admit` (counted per call).
 launches = 0
@@ -89,10 +91,9 @@ def dom_admit_cuda(deadlines: torch.Tensor,
     if deadlines.device.type != "cuda":
         raise ValueError("dom_admit_cuda needs CUDA tensors")
     lib = build.library("dom_admit")
-    fn = lib.dom_admit_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int] + [ctypes.c_void_p] * 10
-    fn.restype = ctypes.c_int
+    fn = build.bind(lib, "dom_admit_launch",
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_int] + [ctypes.c_void_p] * 10)
     dev = deadlines.device
     n, R = arrivals.shape
     d = deadlines.contiguous()
@@ -105,14 +106,15 @@ def dom_admit_cuda(deadlines: torch.Tensor,
     vb = torch.empty_like(va)
     nte = max(1, -(-2 * n // build.TILE))
     ntm = max(1, -(-n // build.TILE))
-    hist = torch.empty(R * 256 * nte, dtype=torch.int32, device=dev)
+    work = torch.empty(onesweep_work_words(2 * n, R), dtype=torch.int32,
+                       device=dev)
     tile_count = torch.empty(R * ntm, dtype=torch.int32, device=dev)
     early_total = torch.empty(R, dtype=torch.int32, device=dev)
     tile_max = torch.empty(R * nte, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(d.data_ptr(), a.data_ptr(), n, R, admitted.data_ptr(),
               ka.data_ptr(), kb.data_ptr(), va.data_ptr(), vb.data_ptr(),
-              hist.data_ptr(), tile_count.data_ptr(), early_total.data_ptr(),
+              work.data_ptr(), tile_count.data_ptr(), early_total.data_ptr(),
               tile_max.data_ptr(), stream)
     build.check(lib, "dom_admit", code)
     launches += 1

@@ -7,11 +7,17 @@ admitted [n] bool and a clock ``now``, it returns the ids of the released
 messages (admitted and deadline <= now) in stable deadline order -- ties by
 id -- padded with -1, plus their count.
 
-The kernel (``csrc/dom_release.cu``) masks 64-bit time keys and runs a
-stable 8-pass LSD radix sort with the id as payload. It is memory-bound:
-the least traffic is 9n bytes read (deadline, admitted flag) and 4n
-written (order). The plain version is a masked stable `torch.sort` of the
-same keys.
+The kernel (``csrc/dom_release.cu``) masks 64-bit time keys and sorts them
+stably by 8-bit LSD radix passes with the id as payload, on one of two
+routes (``release_route``): ``small`` up to ``SMALL_MAX`` lanes (the data
+plane's bucket of ~1e4 requests) is one launch of one block that keeps the
+keys in registers and shared memory and skips a pass whose digit is the
+same for every key; ``onesweep`` above it is the onesweep sort shared with
+``dom_admit`` (a memset, an upfront histogram kernel, eight pass kernels
+with a decoupled look-back), with one scratch buffer of
+``onesweep_scratch_bytes(n)``. The least traffic is 9n bytes read
+(deadline, admitted flag) and 4n written (order). The plain version is a
+masked stable `torch.sort` of the same keys.
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or raises).
@@ -25,8 +31,35 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.timekeys import KEY_TOP, time_sort_keys
 
-# Launches of the CUDA kernel through `dom_release` (counted per call).
+SMALL_MAX = 16384        # `SMALL_MAX` in csrc/dom_release.cu
+ONESWEEP_TILE = 4096     # `OS_TILE` in csrc/common.cuh
+PASSES = 8
+
+# Launches through `dom_release` (counted per call): of either route, and
+# of each route on its own.
 launches = 0
+launches_small = 0
+launches_onesweep = 0
+
+
+def release_route(n: int) -> str:
+    """The kernel route for n lanes: ``small`` (one block) or ``onesweep``."""
+    return "small" if n <= SMALL_MAX else "onesweep"
+
+
+def onesweep_work_words(length: int, segments: int) -> int:
+    """u32 words of the onesweep sort's work area (`dom::work_words`):
+    the eight digit histograms and tile counters of each segment, the
+    released count, and two banks of look-back status words a tile."""
+    tiles = -(-length // ONESWEEP_TILE)
+    return segments * (PASSES * 256 + PASSES) + 1 + 2 * segments * tiles * 256
+
+
+def onesweep_scratch_bytes(n: int) -> int:
+    """Bytes of the one scratch buffer an onesweep call takes: two key and
+    two id buffers of n lanes and the work area (the small route takes
+    none)."""
+    return 24 * n + 4 * onesweep_work_words(n, 1)
 
 
 def dom_release_plain(deadlines: torch.Tensor, admitted: torch.Tensor,
@@ -53,37 +86,54 @@ def _check(deadlines: torch.Tensor, admitted: torch.Tensor) -> None:
         raise ValueError("deadlines and admitted are on different devices")
 
 
+# argtypes of the two launch functions: (deadlines, admitted, now, n, order,
+# count[, scratch, scratch bytes], stream)
+_SMALL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
+               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p]
+_ONESWEEP_ARGS = _SMALL_ARGS[:6] + [ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_void_p]
+
+
 def dom_release_cuda(deadlines: torch.Tensor, admitted: torch.Tensor,
-                     clock_now: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
-    global launches
+                     clock_now: float, *, route: str | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on PyTorch's current stream (no sync).
+
+    ``route`` forces a route (``small`` takes at most SMALL_MAX lanes), to
+    compare the two; by default `release_route` picks it."""
+    global launches, launches_small, launches_onesweep
     _check(deadlines, admitted)
     if deadlines.device.type != "cuda":
         raise ValueError("dom_release_cuda needs CUDA tensors")
-    lib = build.library("dom_release")
-    fn = lib.dom_release_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
-                   ctypes.c_int] + [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
-    dev = deadlines.device
     n = deadlines.shape[0]
+    route = release_route(n) if route is None else route
+    if route not in ("small", "onesweep") or (route == "small"
+                                              and n > SMALL_MAX):
+        raise ValueError(f"no route {route!r} for n = {n}")
+    lib = build.library("dom_release")
+    dev = deadlines.device
     d = deadlines.contiguous()
     adm = admitted.to(torch.bool).contiguous()
     order = torch.empty(n, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    ka = torch.empty(n, dtype=torch.int64, device=dev)
-    kb = torch.empty_like(ka)
-    va = torch.empty(n, dtype=torch.int32, device=dev)
-    vb = torch.empty_like(va)
-    hist = torch.empty(256 * max(1, -(-n // build.TILE)),
-                       dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(d.data_ptr(), adm.data_ptr(), float(clock_now), n,
-              order.data_ptr(), count.data_ptr(), ka.data_ptr(),
-              kb.data_ptr(), va.data_ptr(), vb.data_ptr(), hist.data_ptr(),
-              stream)
+    args = (d.data_ptr(), adm.data_ptr(), float(clock_now), n,
+            order.data_ptr(), count.data_ptr())
+    if route == "small":
+        fn = build.bind(lib, "dom_release_small_launch", _SMALL_ARGS)
+        code = fn(*args, stream)
+    else:
+        fn = build.bind(lib, "dom_release_onesweep_launch", _ONESWEEP_ARGS)
+        nbytes = onesweep_scratch_bytes(n)
+        scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=dev)
+        code = fn(*args, scratch.data_ptr(), nbytes, stream)
     build.check(lib, "dom_release", code)
     launches += 1
+    if route == "small":
+        launches_small += 1
+    else:
+        launches_onesweep += 1
     return order, count
 
 
@@ -96,4 +146,6 @@ def dom_release(deadlines: torch.Tensor, admitted: torch.Tensor,
     return dom_release_cuda(deadlines, admitted, clock_now)
 
 
-__all__ = ["dom_release", "dom_release_plain", "dom_release_cuda"]
+__all__ = ["dom_release", "dom_release_plain", "dom_release_cuda",
+           "release_route", "onesweep_scratch_bytes", "onesweep_work_words",
+           "SMALL_MAX", "ONESWEEP_TILE"]

@@ -45,7 +45,9 @@ def _batch(rng, n, r=3, drop=0.02):
 
 
 @pytest.mark.parametrize("n,r", [(1, 3), (2047, 3), (2049, 1), (4099, 5),
-                                 (65536, 3), (300_001, 3)])
+                                 (65536, 3), (300_001, 3),
+                                 # 2N at and past the onesweep tile (4096)
+                                 (2048, 3), (4097, 3), (8192, 2)])
 def test_admit_kernel_equals_plain(dev, n, r):
     rng = np.random.default_rng(n)
     d, a = _batch(rng, n, r)
@@ -68,12 +70,22 @@ def test_admit_kernel_grid_ties_and_dropped_receiver(dev):
     assert not bool(got[:, 2].any())
 
 
-@pytest.mark.parametrize("n", [1, 2048, 2049, 100_000, 1 << 20])
+def _routes():
+    return (release_mod.launches, release_mod.launches_small,
+            release_mod.launches_onesweep)
+
+
+# the small route's edges (one block of 16384 lanes), the onesweep tile's
+# (4096) multiples and their neighbours, and 2^24 once
+@pytest.mark.parametrize("n", [1, 2048, 2049, 100_000, 1 << 20,
+                               2, 1023, 1024, 1025, 16383, 16384, 16385,
+                               20479, 20480, 20481, (1 << 20) + 1, 1 << 24])
 def test_release_kernel_equals_plain(dev, n):
     rng = np.random.default_rng(n)
     d = rng.integers(0, 1 << 12, n) / 4096.0    # many exact ties
     d[rng.random(n) < 0.05] = np.inf
     dt = torch.as_tensor(d, device=dev)
+    total, small, onesweep = _routes()
     for adm, now in ((torch.ones(n, dtype=torch.bool, device=dev),
                       float("inf")),
                      (torch.as_tensor(rng.random(n) < 0.7, device=dev), 0.5)):
@@ -81,6 +93,82 @@ def test_release_kernel_equals_plain(dev, n):
         want = release_mod.dom_release_plain(dt, adm, now)
         assert torch.equal(got[0], want[0])
         assert int(got[1]) == int(want[1])
+    small_route = n <= release_mod.SMALL_MAX
+    assert release_mod.release_route(n) == ("small" if small_route
+                                            else "onesweep")
+    assert _routes() == (total + 2, small + 2 * small_route,
+                         onesweep + 2 * (not small_route))
+
+
+@pytest.mark.parametrize("n", [1, 2, 1023, 4095, 4096, 4097, 16384])
+def test_release_onesweep_route_below_the_small_limit(dev, n):
+    """Forced onesweep on the small route's sizes: one partial tile, a
+    full one, tiles plus one lane; it agrees with the small route."""
+    rng = np.random.default_rng(n + 7)
+    d = rng.integers(0, 64, n) / 16.0 - 1.0
+    d[rng.random(n) < 0.05] = np.inf
+    dt = torch.as_tensor(d, device=dev)
+    adm = torch.as_tensor(rng.random(n) < 0.8, device=dev)
+    want = release_mod.dom_release_plain(dt, adm, 2.0)
+    total, small, onesweep = _routes()
+    for route in ("onesweep", "small"):
+        got = release_mod.dom_release_cuda(dt, adm, 2.0, route=route)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert _routes() == (total + 2, small + 1, onesweep + 1)
+
+
+def _edge_deadlines(kind, n, rng):
+    if kind == "ties":
+        return np.full(n, 0.125)
+    if kind == "all_inf":
+        return np.full(n, np.inf)
+    if kind == "signed_zeros":
+        return rng.choice([0.0, -0.0, 1e-300, -1e-300], n)
+    if kind == "subnormals":
+        return rng.choice([5e-324, 1e-310, -5e-324, 2.2e-308, 0.0], n)
+    if kind == "negative":
+        return -rng.uniform(0, 1e6, n)
+    if kind == "nonfinite":
+        return rng.choice([np.inf, -np.inf, np.nan, 1.0, -1.0], n)
+    if kind == "constant_high_bytes":            # 6 of 8 digits constant
+        return 1.0 + rng.integers(0, 1 << 16, n) * 2.0 ** -52
+    return rng.uniform(0, 1, n)                  # "all_masked"
+
+
+@pytest.mark.parametrize("n", [777, 16384, 40000])
+@pytest.mark.parametrize("kind", ["ties", "all_masked", "all_inf",
+                                  "signed_zeros", "subnormals", "negative",
+                                  "nonfinite", "constant_high_bytes"])
+def test_release_kernel_edge_inputs(dev, kind, n):
+    rng = np.random.default_rng(len(kind) * n)
+    dt = torch.as_tensor(_edge_deadlines(kind, n, rng), device=dev)
+    if kind == "all_masked":
+        adm = torch.zeros(n, dtype=torch.bool, device=dev)
+    elif kind in ("ties", "constant_high_bytes"):     # passes to skip
+        adm = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        adm = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+    for now in (float("inf"), 0.5, -0.0):
+        got = release_mod.dom_release_cuda(dt, adm, now)
+        want = release_mod.dom_release_plain(dt, adm, now)
+        assert torch.equal(got[0], want[0]), now
+        assert int(got[1]) == int(want[1]), now
+    if kind == "all_masked":
+        assert int(got[1]) == 0 and bool((got[0] == -1).all())
+
+
+def test_release_geometry_matches_the_wrappers_mirror(dev):
+    """The wrapper's route limit, tile and scratch size are those of the
+    CUDA source."""
+    import ctypes
+
+    fn = build.bind(build.library("dom_release"), "dom_release_geometry",
+                    [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)])
+    out = (ctypes.c_longlong * 3)()
+    for n in (0, 1, 4095, 4096, 16385, 1 << 20, 1 << 24):
+        fn(n, out)
+        assert list(out) == [release_mod.SMALL_MAX, release_mod.ONESWEEP_TILE,
+                             release_mod.onesweep_scratch_bytes(n)]
 
 
 def test_wrappers_launch_the_kernels_on_cuda_tensors(dev):
@@ -464,6 +552,9 @@ class _FailingLaunch:
 
     def __init__(self):
         self.inchash_launch = lambda *args: 1          # cudaErrorInvalidValue
+        self.dom_release_small_launch = lambda *args: 1
+        self.dom_release_onesweep_launch = lambda *args: 1
+        self.dom_admit_launch = lambda *args: 1
         self.flash_attention_launch = lambda *args: 1
         self.flash_attention_tc_launch = lambda *args: 1
         self.kernel_error_string = lambda code: b"invalid argument"
@@ -483,3 +574,30 @@ def test_inchash_raises_when_its_build_or_launch_fails(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="inchash kernel launch failed"):
         inchash_mod.inchash(*cols)
     assert inchash_mod.launches == before
+
+
+@pytest.mark.parametrize("n", [100, 20000])
+def test_dom_kernels_raise_when_their_build_or_launch_fails(dev, monkeypatch,
+                                                            n):
+    """No fallback: a failed build or launch raises on either release
+    route and in dom_admit, and counts no launch."""
+    rng = np.random.default_rng(n)
+    d, a = _batch(rng, n)
+    dt, at = torch.as_tensor(d, device=dev), torch.as_tensor(a, device=dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    before = (_routes(), admit_mod.launches)
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(build, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        release_mod.dom_release(dt, ones, float("inf"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        admit_mod.dom_admit(dt, at)
+    monkeypatch.setattr(build, "library", lambda name: _FailingLaunch())
+    with pytest.raises(RuntimeError, match="dom_release kernel launch failed"):
+        release_mod.dom_release(dt, ones, float("inf"))
+    with pytest.raises(RuntimeError, match="dom_admit kernel launch failed"):
+        admit_mod.dom_admit(dt, at)
+    assert (_routes(), admit_mod.launches) == before

@@ -170,6 +170,72 @@ def test_deadline_order_with_nonfinite_matches_pallas_and_argsort():
     assert ops.dom_deadline_order(np.zeros(0), device="cpu").size == 0
 
 
+@pytest.mark.pallas
+@pytest.mark.parametrize("kind", ["ties", "all_masked", "all_inf",
+                                  "negative", "subnormals"])
+def test_release_edge_inputs_match_pallas(kind):
+    """The card tests' edge inputs, at the reference's kernel: the plain
+    version equals `dom_release_pallas` in interpret mode."""
+    n = 64
+    d = {"ties": np.full(n, 0.25),
+         "all_masked": RNG.uniform(0, 1, n),
+         "all_inf": np.full(n, np.inf),
+         "negative": -RNG.integers(0, 8, n) / 4.0,
+         "subnormals": RNG.choice([5e-324, 1e-310, -5e-324, 2.2e-308], n),
+         }[kind]
+    admitted = (np.zeros(n, bool) if kind == "all_masked"
+                else RNG.random(n) < 0.8)
+    for now in (np.inf, 0.5, -0.25):
+        order, count = _port_release(d, admitted, now)
+        p_order, p_count = _pallas_release(d, admitted, now)
+        assert count == p_count
+        np.testing.assert_array_equal(order, p_order)
+    if kind == "all_masked":
+        assert count == 0 and (order == -1).all()
+
+
+def test_release_signed_zeros_tie_by_id():
+    """+0.0 and -0.0 share a key (the reference's TPU keys put -0.0 first):
+    ties by id, as numpy's stable argsort."""
+    d = RNG.choice([0.0, -0.0, 1e-300, -1e-300], 64)
+    admitted = RNG.random(64) < 0.8
+    for now in (0.0, -0.0, np.inf):
+        order, count = _port_release(d, admitted, now)
+        want, k = _stable_release_oracle(d, admitted, now)
+        assert count == k
+        np.testing.assert_array_equal(order[:k], want)
+        assert (order[k:] == -1).all()
+
+
+@pytest.mark.parametrize("n,route", [(0, "small"), (1, "small"),
+                                     (16383, "small"), (16384, "small"),
+                                     (16385, "onesweep"),
+                                     (1 << 24, "onesweep")])
+def test_release_route_by_size(n, route):
+    """One block up to the data plane's 16384-lane bucket, onesweep above."""
+    assert release_mod.release_route(n) == route
+    assert (n <= release_mod.SMALL_MAX) == (route == "small")
+
+
+def test_onesweep_scratch_sizes():
+    """The work area: per segment 8 digit histograms of 256 words and 8
+    tile counters, one released count, then two look-back banks of 256
+    words a 4096-key tile and segment; the scratch adds two u64 key and
+    two u32 id buffers."""
+    header = 8 * 256 + 8
+    assert release_mod.onesweep_work_words(0, 1) == header + 1
+    for length, tiles in ((1, 1), (4096, 1), (4097, 2), (16385, 5),
+                          (1 << 24, 4096)):
+        assert release_mod.onesweep_work_words(length, 1) == \
+            header + 1 + 2 * tiles * 256
+    # dom_admit's main shape: 3 receivers of 2 x 16384 events
+    assert release_mod.onesweep_work_words(2 * 16384, 3) == \
+        3 * header + 1 + 2 * 3 * 8 * 256
+    n = 16385
+    assert release_mod.onesweep_scratch_bytes(n) == \
+        24 * n + 4 * (header + 1 + 2 * 5 * 256)
+
+
 # ---------------------------------------------------------------------------
 # 64-bit time keys
 # ---------------------------------------------------------------------------
