@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. build of the CUDA kernels from the checkout's sources (seconds), with
-     ptxas's registers and spills for each flash_attention instantiation
-     and each kernel of the DOM sort;
+     ptxas's registers and spills for each flash_attention instantiation,
+     each kernel of the DOM sort and each ssd_scan kernel;
   3. each kernel against its plain torch version on the card, exact, on a
      realistic DOM batch (lognormal 60 us one-way delays, 2 % drops,
      deadlines at send + 120 us) at n in {1e4, 1e5, 1e6} and R = 3 and at
@@ -46,14 +46,16 @@ Phases (any failure exits non-zero):
      4 prompts of 32 tokens with 16 new tokens each; and a one-slot engine
      whose decode logits after admitting a prompt must agree with
      `make_prefill`'s last logits for it, within the same tolerance;
-  7. the SSD-scan kernel against its plain version on the card at
+  7. the SSD-scan kernels against their plain version on the card at
      mamba2-130m's prefill shape (b 2, S 4096, H 24, P 64, N 128, chunk
      128) with x, B, C bf16 and dt float32 as the model calls it
      (tolerance 5e-2), then all float32 (2e-4) -- the reference's
      kernel-test tolerances, on y and on the final state -- and at small
      shapes (the reference's three kernel-test shapes, a ragged S 333,
-     S 32 < chunk, and b 1, S 32768 at the main head layout), each timed
-     with CUDA events beside the plain version;
+     S 32 < chunk), at hymba-1.5b's heads (H 25, N 16; b 2, S 4096) and
+     at b 1, S 32768 with the main head layout; each timed with CUDA
+     events (eager, and replayed from a CUDA graph) beside the plain
+     version on the same inputs, with its share of the bound;
   8. the LM path at mamba2-130m's full width (24 layers, d 768, H 24, P 64,
      N 128, random weights from seed 0), as phase 6 drives tinyllama:
      prefill B 2 x S 4096 with the counts reset just before and read just
@@ -462,10 +464,11 @@ def time_prefill_32k(dev) -> dict:
 
 
 def check_ssd(dev, b, S, H, P, N, chunk, dtype, dt_dtype=None) -> dict:
-    """ssd_scan's kernel == its plain version within the reference's
+    """ssd_scan's kernels == their plain version within the reference's
     kernel-test tolerance of x's dtype (|got - want| <= tol + tol |want|,
-    on y and the final state); kernel and plain times in ms (CUDA events,
-    mean of 20 after a warm call) beside the bound."""
+    on y and the final state); timed (CUDA events, mean of 20 after a warm
+    call; eager, and replayed from a CUDA graph) beside the plain version
+    on the same inputs and the bound."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -504,13 +507,15 @@ def check_ssd(dev, b, S, H, P, N, chunk, dtype, dt_dtype=None) -> dict:
     t_ops = ssd.ssd_scan_flops(b, S, H, P, N, chunk) / PEAK_FLOPS[dtype]
     res = {"shape": shape, "max_abs_err": errs["y"],
            "state_max_abs_err": errs["h"],
-           "ms": time_ms(lambda: ssd.ssd_scan_cuda(x, dt, A, B, C,
-                                                   chunk=chunk)),
-           "plain_ms": time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, B, C,
-                                                          chunk=chunk)),
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": None}
+    call = lambda: ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)  # noqa: E731
+    res["ms"] = time_ms(call)
+    res["graph_ms"] = time_graph_ms(call)
+    res["plain_ms"] = time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, B, C,
+                                                         chunk=chunk))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
     torch.cuda.empty_cache()
     return res
 
@@ -923,7 +928,7 @@ def main() -> int:
           + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
     for line in ptxas_summary(log.getvalue(), ("fa_tc", "flash_attention",
                                                "release_small",
-                                               "onesweep_")):
+                                               "onesweep_", "ssd_")):
         print(f"  ptxas {line}")
 
     rate, duration = 1e6, 0.2
@@ -1071,14 +1076,18 @@ def main() -> int:
                                      (2, 333, 24, 64, 128, 128),
                                      (1, 32, 24, 64, 128, 128)):
             ssd_rows.append(check_ssd(dev, b, S, H, P, N, chunk, dtype))
+    # hymba-1.5b's heads (H 25, P 64, N 16), the hybrid family's scan
+    ssd_rows.append(check_ssd(dev, 2, 4096, 25, 64, 16, 128, "bfloat16",
+                              "float32"))
     ssd_32k = check_ssd(dev, 1, 32768, 24, 64, 128, 128, "bfloat16",
                         "float32")
     ssd_rows.append(ssd_32k)
     for r in ssd_rows:
+        g = "-" if r["graph_ms"] is None else f"{r['graph_ms']:.4f}"
         print(f"  {r['shape']}: err y {r['max_abs_err']:.3g} h "
-              f"{r['state_max_abs_err']:.3g}, {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+              f"{r['state_max_abs_err']:.3g}, {r['ms']:.4f} ms (graph {g}), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), share of bound {r['bound_share']:.4f}")
 
     # -- 8. the SSM path at full width ---------------------------------------
     sm = drive_lm_path(dev, "mamba2-130m", long_prompt=32768)
@@ -1216,6 +1225,8 @@ def main() -> int:
             "ms", "library_ms", "bound_ms", "tflops",
             "tail_max_abs_err")}})
     r = ssd_main["bfloat16"]
+    ssd_keys = ("max_abs_err", "state_max_abs_err", "ms", "graph_ms",
+                "plain_ms", "bound_ms", "bound_by")
     record["kernels"].append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1225,11 +1236,9 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "shape": r["shape"],
         "state_max_abs_err": r["state_max_abs_err"],
-        "float32": {k: ssd_main["float32"][k] for k in (
-            "max_abs_err", "state_max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by")},
-        "prefill_32k": {k: ssd_32k[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}})
+        "graph_ms": r["graph_ms"],
+        "float32": {k: ssd_main["float32"][k] for k in ssd_keys},
+        "prefill_32k": {k: ssd_32k[k] for k in ssd_keys}})
     record["kernels"].append({
         "name": "inchash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/inchash.cu",

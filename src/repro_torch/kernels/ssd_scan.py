@@ -1,4 +1,4 @@
-"""Mamba2 SSD chunked scan: kernel, plain version, wrapper.
+"""Mamba2 SSD chunked scan: kernels, plain version, wrapper.
 
 Port of `repro/kernels/ssd_scan.py` (the Pallas kernel `ssd_scan_pallas`,
 body `_ssd_kernel`): the core of the chunked scan, without the D skip.
@@ -13,15 +13,19 @@ All arithmetic is float32; y comes out in x's dtype, and the final state
 h [b, H, N, P] float32 is returned beside it. A ragged last chunk is the
 reference's zero padding (dt = 0, x = B = C = 0).
 
-The kernel (``csrc/ssd_scan.cu``) runs one block per (batch, head, 16
-columns of P) that walks every chunk and keeps its slice of the state in
-shared memory. Its bound on the H100 is bytes: each input read once and
-y and h written once, at 3.35 TB/s.
+The kernel (``csrc/ssd_scan.cu``) runs the chunks in parallel: every
+chunk's state increment first, with C B^T once per (batch, chunk) for all
+heads; then one pass hands the state from chunk to chunk; then every
+chunk's y from the state entering it. The products run on bf16 tensor
+cores with float32 sums, a float32 operand split into bf16 parts. Scratch
+(the chunk states, C B^T, the chunk decays, the entering states) comes
+from `torch.empty` here. The bound on the H100 is bytes: each input read
+once and y and h written once, at 3.35 TB/s.
 
 The plain version follows the reference's chunked arithmetic
 (`repro/models/ssm.py::ssd_chunked` without D). The wrapper dispatches on
 the tensors' device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (or raises).
+launches the kernels (or raises).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ CHUNK_MAX = 128      # largest chunk the kernel takes
 STATE_MAX = 128      # largest state size N the kernel takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the CUDA kernel through `ssd_scan` (counted per call).
+# Launches of the CUDA kernels through `ssd_scan_cuda` (counted per call).
 launches = 0
 
 
@@ -103,7 +107,7 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128):
-    """Launch the CUDA kernel on PyTorch's current stream (no sync).
+    """Launch the CUDA kernels on PyTorch's current stream (no sync).
     Returns (y [b, S, H, P] in x's dtype, h [b, H, N, P] float32)."""
     global launches
     _check(x, dt, A, B, C, chunk)
@@ -131,16 +135,27 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
     if b * H * P == 0:
         return y, h
+    nc = -(-S // Q)
+    q16 = -(-Q // 16) * 16
+    f32 = dict(dtype=torch.float32, device=x.device)
+    states = torch.empty((b, nc, H, N, P), **f32)
+    gram = torch.empty((b, nc, q16, q16), **f32)
+    decay = torch.empty((b, nc, H), **f32)
+    # the states entering each chunk as bf16 parts: 3 for a float32 x
+    # (float32 output), else 2 (`kSplit` in the source)
+    parts = 3 if x.dtype == torch.float32 else 2
+    enter = torch.empty((b, nc, H, parts, N, P), dtype=torch.bfloat16,
+                        device=x.device)
     lib = build.library("ssd_scan")
-    fn = lib.ssd_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_int64] * 8 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = build.bind(lib, "ssd_scan_launch",
+                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                    + [ctypes.c_int64] * 8 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-              C.data_ptr(), y.data_ptr(), h.data_ptr(), b, S, H, P, N, Q,
-              x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+              C.data_ptr(), y.data_ptr(), h.data_ptr(), states.data_ptr(),
+              gram.data_ptr(), decay.data_ptr(), enter.data_ptr(), b, S, H,
+              P, N, Q, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
               B.stride(0), B.stride(1), C.stride(0), C.stride(1),
               DTYPES[x.dtype], DTYPES[B.dtype], DTYPES[dt.dtype], stream)
     build.check(lib, "ssd_scan", code)

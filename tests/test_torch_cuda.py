@@ -377,7 +377,7 @@ def test_lm_prefill_through_the_kernel_matches_the_plain_path(dev):
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 
 
-def _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=0):
+def _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=0, bc_dtype=None):
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.standard_normal((b, S, H, P), dtype=np.float32))
     dt = torch.as_tensor(np.abs(rng.standard_normal((b, S, H),
@@ -387,8 +387,24 @@ def _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=0):
                         - 0.1)
     B = torch.as_tensor(rng.standard_normal((b, S, N), dtype=np.float32))
     C = torch.as_tensor(rng.standard_normal((b, S, N), dtype=np.float32))
+    bc_dtype = bc_dtype or dtype
     return (x.to(dev, dtype), dt.to(dev, dt_dtype), A.to(dev),
-            B.to(dev, dtype), C.to(dev, dtype))
+            B.to(dev, bc_dtype), C.to(dev, bc_dtype))
+
+
+def _ssd_close(x, dt, A, B, C, chunk):
+    """The kernel's y and h against the plain version's, within the
+    reference's kernel-test tolerance of x's dtype; returns (y, h)."""
+    y, h = ssd_mod.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    y_want, h_want = ssd_mod.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    b, S, H, P = x.shape
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert h.dtype == torch.float32 and h.shape == (b, H, B.shape[-1], P)
+    tol = SSD_TOL[x.dtype]
+    assert torch.allclose(y.float(), y_want.float(), atol=tol, rtol=tol)
+    assert torch.allclose(h, h_want, atol=tol, rtol=tol)
+    return y, h
 
 
 @pytest.mark.parametrize("dtype,dt_dtype", [
@@ -401,18 +417,85 @@ def _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=0):
     (2, 333, 24, 64, 128, 128),       # ragged tail at mamba2-130m's heads
     (1, 32, 24, 64, 128, 128),        # S < chunk: one chunk of 32
     (1, 300, 5, 40, 16, 64),          # P not a multiple of 16
+    (1, 1, 24, 64, 128, 128),         # S 1: one chunk of one row
+    (2, 128, 24, 64, 128, 128),       # S = chunk
+    (1, 129, 24, 64, 128, 128),       # S = chunk + 1: a one-row tail
+    (2, 1000, 4, 64, 128, 64),        # 16 chunks of 64, a 40-row tail
+    (1, 1100, 25, 64, 16, 128),       # hymba-1.5b's heads (H 25, N 16)
+    (1, 300, 3, 200, 8, 128),         # P 200: four column slices of 64
+    (1, 100, 2, 3, 5, 32),            # N P odd: rows unaligned, scalar pass
+    (2, 77, 3, 12, 20, 16),           # x rows not 16-byte aligned
 ])
 def test_ssd_scan_kernel_equals_plain(dev, dtype, dt_dtype, b, S, H, P, N,
                                       chunk):
     x, dt, A, B, C = _ssd_inputs(dev, b, S, H, P, N, dtype, dt_dtype, seed=S)
-    y, h = ssd_mod.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
-    y_want, h_want = ssd_mod.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    torch.cuda.synchronize()
-    assert y.dtype == dtype and y.shape == x.shape
-    assert h.dtype == torch.float32 and h.shape == (b, H, N, P)
-    tol = SSD_TOL[dtype]
-    assert torch.allclose(y.float(), y_want.float(), atol=tol, rtol=tol)
-    assert torch.allclose(h, h_want, atol=tol, rtol=tol)
+    _ssd_close(x, dt, A, B, C, chunk)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_takes_every_mix_of_input_types(dev, x_dtype, bc_dtype,
+                                                 dt_dtype):
+    """x, B and C, and dt each float32 or bf16: all eight instantiations
+    agree with the plain version."""
+    x, dt, A, B, C = _ssd_inputs(dev, 2, 270, 6, 64, 32, x_dtype, dt_dtype,
+                                 seed=3, bc_dtype=bc_dtype)
+    _ssd_close(x, dt, A, B, C, 128)
+
+
+def test_ssd_scan_crosses_64_chunk_boundaries(dev):
+    """b 1, S 8192 at chunk 128: the state passes through 64 chunks, at
+    mamba2-130m's heads, as the model calls it (bf16 x, B, C; float32
+    dt)."""
+    x, dt, A, B, C = _ssd_inputs(dev, 1, 8192, 24, 64, 128, torch.bfloat16,
+                                 torch.float32, seed=11)
+    _ssd_close(x, dt, A, B, C, 128)
+
+
+def test_ssd_scan_gives_the_same_bits_every_call(dev):
+    """No sum depends on which block ran first: two calls on the same
+    inputs give bit-identical y and h."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, B, C = _ssd_inputs(dev, 2, 1500, 24, 64, 128, dtype,
+                                     torch.float32, seed=13)
+        y1, h1 = ssd_mod.ssd_scan_cuda(x, dt, A, B, C)
+        y2, h2 = ssd_mod.ssd_scan_cuda(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_ssd_scan_launches_once_per_call_at_the_main_shape(dev):
+    """Every call through `ssd_scan` at mamba2-130m's prefill shape (b 2,
+    S 4096, H 24, P 64, N 128; bf16 x, B, C and float32 dt, and all
+    float32) counts one launch and agrees with the plain version."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, B, C = _ssd_inputs(dev, 2, 4096, 24, 64, 128, dtype,
+                                     torch.float32, seed=17)
+        before = ssd_mod.launches
+        y, h = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=128)
+        assert ssd_mod.launches == before + 1
+        y_want, h_want = ssd_mod.ssd_scan_plain(x, dt, A, B, C, chunk=128)
+        tol = SSD_TOL[dtype]
+        assert torch.allclose(y.float(), y_want.float(), atol=tol, rtol=tol)
+        assert torch.allclose(h, h_want, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_raises_when_its_build_or_launch_fails(dev, monkeypatch):
+    x, dt, A, B, C = _ssd_inputs(dev, 1, 200, 2, 16, 16, torch.bfloat16,
+                                 torch.float32)
+    before = ssd_mod.launches
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(build, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ssd_mod.ssd_scan_cuda(x, dt, A, B, C)
+    monkeypatch.setattr(build, "library", lambda name: _FailingLaunch())
+    with pytest.raises(RuntimeError, match="ssd_scan kernel launch failed"):
+        ssd_mod.ssd_scan_cuda(x, dt, A, B, C)
+    assert ssd_mod.launches == before
 
 
 def test_ssd_scan_takes_the_mixers_strided_views(dev):
@@ -557,6 +640,7 @@ class _FailingLaunch:
         self.dom_admit_launch = lambda *args: 1
         self.flash_attention_launch = lambda *args: 1
         self.flash_attention_tc_launch = lambda *args: 1
+        self.ssd_scan_launch = lambda *args: 1
         self.kernel_error_string = lambda code: b"invalid argument"
 
 

@@ -89,6 +89,75 @@ def test_plain_scan_matches_the_pallas_kernel_and_the_oracle(
                                _np(oracle), atol=tol, rtol=tol)
 
 
+def _chunk_parallel_scan(x, dt, A, B, C, *, chunk):
+    """The CUDA kernels' schedule (`csrc/ssd_scan.cu`) in plain torch,
+    with `ssd_scan_plain`'s operations: every chunk's state
+    increment and decay first, then the state passing, then every chunk's y
+    from the state entering it."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    x, B, C = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+               for t in (x, B, C))
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    nc = (S + pad) // Q
+    xc = x.reshape(b, nc, Q, H, P)
+    dtc = dt.reshape(b, nc, Q, H).float()
+    Bc = B.reshape(b, nc, Q, N).float()
+    Cc = C.reshape(b, nc, Q, N).float()
+    cum = torch.cumsum(dtc * A.float(), dim=2)
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    incs, decays = [], []
+    for c in range(nc):
+        cumq = cum[:, c]
+        last = cumq[:, -1, :]
+        to_end = torch.exp(last[:, None, :] - cumq) * dtc[:, c]
+        incs.append(torch.einsum("bkh,bkn,bkhp->bhnp", to_end, Bc[:, c],
+                                 xc[:, c].float()))
+        decays.append(torch.exp(last)[:, :, None, None])
+    h = torch.zeros(b, H, N, P, dtype=torch.float32)
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * decays[c] + incs[c]
+    ys = []
+    for c in range(nc):
+        xq, dtq, bq, cq, cumq = (xc[:, c].float(), dtc[:, c], Bc[:, c],
+                                 Cc[:, c], cum[:, c])
+        scores = torch.einsum("bqn,bkn->bqk", cq, bq)
+        decay = cumq[:, :, None, :] - cumq[:, None, :, :]
+        decay = torch.where(causal[None, :, :, None], decay, -1e30)
+        M = scores[..., None] * torch.exp(decay) * dtq[:, None, :, :]
+        y_intra = torch.einsum("bqkh,bkhp->bqhp", M, xq)
+        y_inter = (torch.einsum("bqn,bhnp->bqhp", cq, entering[c])
+                   * torch.exp(cumq)[..., None])
+        ys.append((y_intra + y_inter).to(x.dtype))
+    return torch.stack(ys, dim=1).reshape(b, nc * Q, H, P)[:, :S], h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,S,H,P,N,chunk", SHAPES)
+def test_chunk_parallel_schedule_equals_the_plain_scan_and_the_reference(
+        b, S, H, P, N, chunk, dtype):
+    """The CUDA kernels' decomposition (all chunk states, then the
+    state passing, then each chunk's y) is the plain scan's arithmetic:
+    bit for bit, since every element sees the same operations in the same
+    order; and it matches the Pallas kernel and the oracle."""
+    arrays = _scan_inputs(b, S, H, P, N, dtype, seed=S + H + 1)
+    dts = (dtype, dtype, "float32", dtype, dtype)
+    (xj, dtj, Aj, Bj, Cj), (xt, dtt, At, Bt, Ct) = _both(arrays, dts)
+    y, h = _chunk_parallel_scan(xt, dtt, At, Bt, Ct, chunk=chunk)
+    want_y, want_h = ssd_scan_plain(xt, dtt, At, Bt, Ct, chunk=chunk)
+    assert y.dtype == want_y.dtype and torch.equal(y, want_y)
+    assert torch.equal(h, want_h)
+    tol = TOL[dtype]
+    pallas = ssd_scan_pallas(xj, dtj, Aj, Bj, Cj, chunk=chunk, interpret=True)
+    oracle = jref.ssd_scan_ref(xj, dtj, Aj, Bj, Cj)
+    np.testing.assert_allclose(_np(y), _np(pallas), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(y), _np(oracle), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,chunk", [(32, 8), (48, 16), (40, 64), (130, 128)])
 def test_ssd_chunked_matches_the_references_y_and_state(S, chunk, dtype):
