@@ -7,23 +7,28 @@ Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. build of the CUDA kernels from the checkout's sources (seconds), with
      ptxas's registers and spills for each flash_attention instantiation,
-     each kernel of the DOM sort and each ssd_scan kernel;
+     each kernel of the DOM sorts (dom_admit's cluster kernel among them)
+     and each ssd_scan kernel, and how many of dom_admit's 16-block
+     clusters the card holds at once;
   3. each kernel against its plain torch version on the card, exact, on a
      realistic DOM batch (lognormal 60 us one-way delays, 2 % drops,
      deadlines at send + 120 us) at n in {1e4, 1e5, 1e6} and R = 3 and at
      the main shape (1e4 requests padded to 16384 lanes), and dom_release
      also on a 2^24-lane backlog; timed with CUDA events per call (eager,
      and replayed from a CUDA graph, which leaves out the host's work)
-     beside the plain version; each dom_release row prints its route, one
-     stable `torch.sort` of the same keys and the share of the byte bound,
-     and at the main shape the onesweep route on the same inputs;
+     beside the plain version; each row prints its route and the share of
+     the byte bound, each dom_release row one stable `torch.sort` of the
+     same keys; at the main shape dom_release, and at every size up to
+     16384 dom_admit, also run the onesweep route on the same inputs (held
+     against the plain version too, and timed);
   4. the main path: `make_cluster("nezha-vectorized")` driven by the
      `WorkloadDriver` -- 3 replicas (f = 1), 1 proxy, 10 ms epochs,
      open-loop Poisson at 1e6 req/s, 50 % reads, Zipf 0.5 over 1 M keys,
      per-key-class commutativity, 0.2 s, K = 16 epoch windows -- on the
      card with the launch counts reset just before and read just after
-     (every dom_release call must take the small route), then the same run on the CPU (plain versions), which must agree bit
-     for bit;
+     (every dom_admit and dom_release call must take the small route, one
+     launch a call), then the same run on the CPU (plain versions), which
+     must agree bit for bit;
   5. the flash-attention kernels against their plain version on the card
      at tinyllama-1.1b's prefill shape (B 2, S = Sk = 4096, Hq 32, Hk 4,
      D 64, causal) in bf16 (tolerance 2e-2; the tensor-core route) and
@@ -281,10 +286,14 @@ def release_line(r: dict) -> str:
 
 def check_kernels(dev, n: int, n_pad: int | None = None) -> dict:
     """Each kernel's wrapper on card tensors (which launches the kernel) ==
-    its plain version on the same tensors, exactly; times in ms."""
+    its plain version on the same tensors, exactly; times in ms. Up to
+    dom_admit's SMALL_MAX its forced onesweep route runs too, on the same
+    inputs."""
     import torch
 
-    from repro_torch.kernels.dom_admit import dom_admit, dom_admit_plain
+    from repro_torch.kernels.dom_admit import (SMALL_MAX, admit_route,
+                                               dom_admit, dom_admit_cuda,
+                                               dom_admit_plain)
 
     d_np, a_np = realistic_batch(n)
     if n_pad is not None:
@@ -300,19 +309,43 @@ def check_kernels(dev, n: int, n_pad: int | None = None) -> dict:
     if not torch.equal(adm_k, adm_p):
         raise RuntimeError(f"dom_admit disagrees with its plain version at "
                            f"n={m}: {int((adm_k != adm_p).sum())} cells")
+    admit = {
+        "route": admit_route(m), "max_abs_err": admit_err,
+        "ms": time_ms(lambda: dom_admit(d, a)),
+        "graph_ms": time_graph_ms(lambda: dom_admit(d, a)),
+        "plain_ms": time_ms(lambda: dom_admit_plain(d, a)),
+        "bound_ms": (8 * m + 8 * R * m + R * m) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None,
+    }
+    admit["bound_share"] = admit["bound_ms"] / admit["ms"]
+    if m <= SMALL_MAX:                    # the other route, same inputs
+        forced = lambda: dom_admit_cuda(d, a,  # noqa: E731
+                                        route="onesweep")
+        if not torch.equal(forced(), adm_p):
+            raise RuntimeError(f"dom_admit's onesweep route disagrees with "
+                               f"the plain version at n={m}")
+        admit["onesweep_ms"] = time_ms(forced)
+        admit["onesweep_graph_ms"] = time_graph_ms(forced)
     return {
         "n": m, "R": R,
-        "dom_admit": {
-            "max_abs_err": admit_err,
-            "ms": time_ms(lambda: dom_admit(d, a)),
-            "graph_ms": time_graph_ms(lambda: dom_admit(d, a)),
-            "plain_ms": time_ms(lambda: dom_admit_plain(d, a)),
-            "bound_ms": (8 * m + 8 * R * m + R * m) / HBM_BYTES_PER_S * 1e3,
-            "library_ms": None,
-        },
+        "dom_admit": admit,
         "dom_release": check_release(dev, d_np,
                                      compare_onesweep=n_pad is not None),
     }
+
+
+def admit_line(n: int, R: int, r: dict) -> str:
+    """One printed row of phase 3's dom_admit timings."""
+    def f(x):
+        return "-" if x is None else f"{x:.4f}"
+    line = (f"dom_admit   n {n:<8d} R {R} route {r['route']:8s} "
+            f"{r['ms']:.4f} ms (graph {f(r['graph_ms'])}), plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} (bytes), share "
+            f"of bound {r['bound_share']:.5f}")
+    if "onesweep_ms" in r:
+        line += (f"; onesweep route on the same inputs {r['onesweep_ms']:.4f}"
+                 f" (graph {f(r['onesweep_graph_ms'])})")
+    return line
 
 
 def attention_inputs(dev, B, S, Sk, Hq, Hk, D, dtype, seed=0):
@@ -928,8 +961,15 @@ def main() -> int:
           + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
     for line in ptxas_summary(log.getvalue(), ("fa_tc", "flash_attention",
                                                "release_small",
+                                               "admit_small",
                                                "onesweep_", "ssd_")):
         print(f"  ptxas {line}")
+    from repro_torch.kernels import dom_admit as admit_mod
+
+    resident = {R: admit_mod.small_route_clusters(R) for R in (3, 7)}
+    print(f"  dom_admit small route: 16-block clusters resident at once "
+          f"(cudaOccupancyMaxActiveClusters) for R = 3 and 7: "
+          f"{json.dumps(resident)}")
 
     rate, duration = 1e6, 0.2
     if args.profile:
@@ -939,17 +979,12 @@ def main() -> int:
         return 0
 
     # -- 3. kernels vs plain versions ------------------------------------------
-    from repro_torch.kernels import dom_admit as admit_mod
     from repro_torch.kernels import dom_release as release_mod
 
-    print("dom_admit   n        R  ms        graph_ms  plain_ms  bound_ms")
     rows = [check_kernels(dev, n) for n in SIZES]
     main_shape = check_kernels(dev, 10_000, n_pad=MAIN_N_PAD)
     for res in rows + [main_shape]:
-        r = res["dom_admit"]
-        g = "-" if r["graph_ms"] is None else f"{r['graph_ms']:.4f}"
-        print(f"dom_admit   {res['n']:<8d} {res['R']}  {r['ms']:<9.4f} "
-              f"{g:9s} {r['plain_ms']:<9.4f} {r['bound_ms']:<9.5f}")
+        print(admit_line(res["n"], res["R"], res["dom_admit"]))
     big = np.sort(np.random.default_rng(24).uniform(0, 1 << 24, 1 << 24)
                   / 1e6)                       # a 2^24-lane backlog
     release_rows = [res["dom_release"] for res in rows] + [
@@ -961,6 +996,8 @@ def main() -> int:
 
     # -- 4. the main path ----------------------------------------------------------
     admit_mod.launches = 0
+    admit_mod.launches_small = 0
+    admit_mod.launches_onesweep = 0
     release_mod.launches = 0
     release_mod.launches_small = 0
     release_mod.launches_onesweep = 0
@@ -969,6 +1006,8 @@ def main() -> int:
                 "dom_release": release_mod.launches}
     release_routes = {"small": release_mod.launches_small,
                       "onesweep": release_mod.launches_onesweep}
+    admit_routes = {"small": admit_mod.launches_small,
+                    "onesweep": admit_mod.launches_onesweep}
     epochs = gpu_sum["epochs"]
     print(f"main path on {torch.cuda.get_device_name(0)}: "
           f"{gpu_sum['n_requests']} requests, {gpu_sum['committed']} "
@@ -976,7 +1015,8 @@ def main() -> int:
           f"median {gpu_sum['median_latency'] * 1e6:.1f} us, "
           f"p90 {gpu_sum['p90_latency'] * 1e6:.1f} us, {epochs} epochs "
           f"({gpu_sum['batches']} with requests), wall {gpu_s:.2f} s, "
-          f"launches {json.dumps(launches)}, dom_release by route "
+          f"launches {json.dumps(launches)}, dom_admit by route "
+          f"{json.dumps(admit_routes)}, dom_release by route "
           f"{json.dumps(release_routes)}")
     for name, count in launches.items():
         if count <= 0:
@@ -984,6 +1024,9 @@ def main() -> int:
     if release_routes["small"] != launches["dom_release"]:
         return fail(f"not every main-path dom_release call took the small "
                     f"route: {json.dumps(release_routes)}")
+    if admit_routes["small"] != launches["dom_admit"]:
+        return fail(f"not every main-path dom_admit call took the small "
+                    f"route: {json.dumps(admit_routes)}")
     cpu_cl, cpu_sum, cpu_s = drive_main_path("cpu", rate, duration)
     print(f"same run on the CPU (plain versions): wall {cpu_s:.2f} s")
     for key, value in gpu_sum.items():
@@ -1194,10 +1237,16 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "n": main_shape["n"]}
         if name == "dom_admit":
             entry["R"] = main_shape["R"]
-            entry["sizes"] = [
-                {"n": res["n"], "R": res["R"], **{k: res[name][k] for k in (
-                    "ms", "graph_ms", "plain_ms", "bound_ms")}}
-                for res in rows]
+            entry["kernel_route"] = r["route"]
+            entry["launches_by_route"] = admit_routes
+            entry["onesweep_ms"] = r["onesweep_ms"]
+            entry["onesweep_graph_ms"] = r["onesweep_graph_ms"]
+            entry["clusters_resident"] = resident
+            keys = ("route", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "onesweep_ms", "onesweep_graph_ms")
+            entry["sizes"] = [{"n": res["n"], "R": res["R"],
+                               **{k: res[name].get(k) for k in keys}}
+                              for res in rows]
         else:
             entry["kernel_route"] = r["route"]
             entry["launches_by_route"] = release_routes

@@ -70,6 +70,99 @@ def test_admit_kernel_grid_ties_and_dropped_receiver(dev):
     assert not bool(got[:, 2].any())
 
 
+def _admit_routes():
+    return (admit_mod.launches, admit_mod.launches_small,
+            admit_mod.launches_onesweep)
+
+
+def _admit_inputs(rng, n, r, kind):
+    """A realistic batch with 3 % infinite deadlines, the 1/64 tie grid, or
+    either with its last receiver dropping everything."""
+    if kind.startswith("grid"):
+        d = rng.integers(0, 4 * 64, n) / 64.0
+        a = rng.integers(0, 6 * 64, (n, r)) / 64.0
+        a[rng.random((n, r)) < 0.15] = np.inf
+    else:
+        d, a = _batch(rng, n, r)
+    d[rng.random(n) < 0.03] = np.inf
+    if kind.endswith("dropped"):
+        a[:, -1] = np.inf
+    return d, a
+
+
+@pytest.mark.parametrize("kind", ["realistic", "grid", "realistic_dropped",
+                                  "grid_dropped"])
+@pytest.mark.parametrize("r", [1, 3, 5, 7])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 2047, 10000, 16383,
+                               16384])
+def test_admit_small_route_equals_plain_and_onesweep(dev, n, r, kind):
+    """The cluster route at the slice's and the bucket's edges, R up to 7
+    (f = 3): equal to the plain version, and to the forced onesweep route
+    on the same inputs, bit for bit; one launch of each route counted."""
+    rng = np.random.default_rng(n * 8 + r)
+    d, a = _admit_inputs(rng, n, r, kind)
+    dt, at = torch.as_tensor(d, device=dev), torch.as_tensor(a, device=dev)
+    want = admit_mod.dom_admit_plain(dt, at)
+    before = _admit_routes()
+    got = admit_mod.dom_admit_cuda(dt, at)
+    assert admit_mod.admit_route(n) == "small"
+    assert _admit_routes() == (before[0] + 1, before[1] + 1, before[2])
+    assert torch.equal(got, want)
+    assert torch.equal(admit_mod.dom_admit_cuda(dt, at, route="onesweep"),
+                       want)
+    assert _admit_routes() == (before[0] + 2, before[1] + 1, before[2] + 1)
+    if kind.endswith("dropped"):
+        assert not bool(got[:, -1].any())
+
+
+def test_admit_small_route_is_deterministic_and_takes_strided_arrivals(dev):
+    """Two calls give the same bits; a transposed view of [R, n] arrivals
+    (the reference's layout) gives the bits of its contiguous copy."""
+    rng = np.random.default_rng(11)
+    d, a = _admit_inputs(rng, 16384, 3, "grid")
+    dt = torch.as_tensor(d, device=dev)
+    at = torch.as_tensor(np.ascontiguousarray(a.T), device=dev).T
+    assert not at.is_contiguous()
+    first = admit_mod.dom_admit_cuda(dt, at)
+    assert torch.equal(first, admit_mod.dom_admit_cuda(dt, at))
+    assert torch.equal(first, admit_mod.dom_admit_plain(dt, at.contiguous()))
+
+
+def test_admit_routes_by_size_and_refusals(dev):
+    """16384 takes the small route and 16385 the onesweep one; the small
+    route refuses more than SMALL_MAX messages; an empty batch launches
+    nothing."""
+    rng = np.random.default_rng(5)
+    for n, route in ((16384, "small"), (16385, "onesweep")):
+        d, a = _admit_inputs(rng, n, 3, "realistic")
+        dt = torch.as_tensor(d, device=dev)
+        at = torch.as_tensor(a, device=dev)
+        total, small, onesweep = _admit_routes()
+        assert torch.equal(admit_mod.dom_admit(dt, at),
+                           admit_mod.dom_admit_plain(dt, at))
+        assert _admit_routes() == (total + 1, small + (route == "small"),
+                                   onesweep + (route == "onesweep"))
+    with pytest.raises(ValueError):
+        admit_mod.dom_admit_cuda(dt, at, route="small")
+    with pytest.raises(ValueError):
+        admit_mod.dom_admit_cuda(dt, at, route="bitonic")
+    before = _admit_routes()
+    empty = admit_mod.dom_admit(torch.zeros(0, dtype=torch.float64,
+                                            device=dev),
+                                torch.zeros((0, 3), dtype=torch.float64,
+                                            device=dev))
+    assert empty.shape == (0, 3) and _admit_routes() == before
+
+
+def test_admit_geometry_and_resident_clusters(dev):
+    """The wrapper's SMALL_MAX is the kernel's, and the card holds at least
+    one 16-block cluster of the small route at once."""
+    fn = build.bind(build.library("dom_admit"), "dom_admit_small_max", [])
+    assert fn() == admit_mod.SMALL_MAX
+    for r in (1, 3, 7):
+        assert admit_mod.small_route_clusters(r) >= 1
+
+
 def _routes():
     return (release_mod.launches, release_mod.launches_small,
             release_mod.launches_onesweep)
@@ -637,7 +730,8 @@ class _FailingLaunch:
         self.inchash_launch = lambda *args: 1          # cudaErrorInvalidValue
         self.dom_release_small_launch = lambda *args: 1
         self.dom_release_onesweep_launch = lambda *args: 1
-        self.dom_admit_launch = lambda *args: 1
+        self.dom_admit_small_launch = lambda *args: 1
+        self.dom_admit_onesweep_launch = lambda *args: 1
         self.flash_attention_launch = lambda *args: 1
         self.flash_attention_tc_launch = lambda *args: 1
         self.ssd_scan_launch = lambda *args: 1
@@ -663,13 +757,14 @@ def test_inchash_raises_when_its_build_or_launch_fails(dev, monkeypatch):
 @pytest.mark.parametrize("n", [100, 20000])
 def test_dom_kernels_raise_when_their_build_or_launch_fails(dev, monkeypatch,
                                                             n):
-    """No fallback: a failed build or launch raises on either release
-    route and in dom_admit, and counts no launch."""
+    """No fallback: a failed build or launch raises on either route of
+    either DOM kernel (n 100 and 20000 fall on the two routes), and counts
+    no launch."""
     rng = np.random.default_rng(n)
     d, a = _batch(rng, n)
     dt, at = torch.as_tensor(d, device=dev), torch.as_tensor(a, device=dev)
     ones = torch.ones(n, dtype=torch.bool, device=dev)
-    before = (_routes(), admit_mod.launches)
+    before = (_routes(), _admit_routes())
 
     def no_build(name):
         raise RuntimeError(f"nvcc failed for {name}")
@@ -684,4 +779,4 @@ def test_dom_kernels_raise_when_their_build_or_launch_fails(dev, monkeypatch,
         release_mod.dom_release(dt, ones, float("inf"))
     with pytest.raises(RuntimeError, match="dom_admit kernel launch failed"):
         admit_mod.dom_admit(dt, at)
-    assert (_routes(), admit_mod.launches) == before
+    assert (_routes(), _admit_routes()) == before

@@ -122,6 +122,208 @@ def test_admit_empty_batch():
 
 
 # ---------------------------------------------------------------------------
+# dom_admit's small route: its schedule in plain torch
+# ---------------------------------------------------------------------------
+U_INF = np.uint64(0xFFF0000000000000)   # key(+inf), `KEY_INF` in common.cuh
+U_SIGN = np.uint64(1 << 63)
+SLICE = 1024                            # messages a block of the cluster
+CLASS1 = admit_mod.SMALL_MAX            # aux = class * CLASS1 + message
+
+
+def _ukeys(x):
+    """The kernels' unsigned 64-bit time keys (signed key ^ INT64_MIN)."""
+    signed = time_sort_keys(torch.as_tensor(x, dtype=torch.float64)).numpy()
+    return signed.view(np.uint64) ^ U_SIGN
+
+
+def _ordered(u):
+    """int64 tensor whose signed order is the unsigned order of ``u``."""
+    return torch.from_numpy((u ^ U_SIGN).view(np.int64))
+
+
+def _small_route_twin(d, a):
+    """The small route of csrc/dom_admit.cu in plain torch, receiver by
+    receiver: the N updates (key max(d, a), aux class * CLASS1 + i) placed
+    in aux order; keys compressed (finite keys less the least, +inf one
+    above the largest); stable 8-bit LSD passes over the digits that vary;
+    the prefix max of the candidates (finite deadline keys, else 0); then
+    per test the number of updates that precede it -- a binary search over
+    the 1024-update slices' first updates, then inside one slice -- with
+    the tie rule: at an equal key, every class-0 update and the class-1
+    updates of earlier messages. Returns admitted [N, R] and the passes run
+    for each receiver."""
+    n, R = a.shape
+    out = np.zeros((n, R), bool)
+    passes = []
+    kd = _ukeys(d)
+    msg = np.arange(n, dtype=np.int64)
+    tests = torch.arange(n)
+    thr = CLASS1 + tests
+    n_slices = -(-n // SLICE)
+    for r in range(R):
+        ka = _ukeys(a[:, r])
+        u = np.maximum(kd, ka)
+        finite = u != U_INF
+        if finite.any():
+            least = u[finite].min()
+            inf_c = u[finite].max() - least + np.uint64(1)
+        else:
+            least, inf_c = np.uint64(0), np.uint64(0)
+        comp = np.where(finite, u - least, inf_c)
+        aux = np.where(kd > ka, 0, CLASS1) + msg
+        place = np.argsort(aux, kind="stable")
+        keys = torch.from_numpy(comp[place].view(np.int64))
+        vals = torch.from_numpy(aux[place])
+        varying = int(np.bitwise_or.reduce(comp)) if n else 0
+        run = 0
+        for p in range(8):
+            if (varying >> (8 * p)) & 0xFF:
+                digit = (keys >> (8 * p)) & 0xFF
+                order = torch.sort(digit, stable=True).indices
+                keys, vals = keys[order], vals[order]
+                run += 1
+        passes.append(run)
+        cand = kd[(vals % CLASS1).numpy()]
+        pmax = torch.cummax(_ordered(np.where(cand == U_INF, np.uint64(0),
+                                              cand)), 0).values
+        ku = keys.numpy().view(np.uint64)
+        dec = _ordered(np.where(ku == inf_c, U_INF, ku + least))
+        key_a = _ordered(ka)
+
+        def precedes(at):
+            return (dec[at] < key_a) | ((dec[at] == key_a) & (vals[at] < thr))
+
+        k = torch.zeros(n, dtype=torch.int64)
+        for step in (16, 8, 4, 2, 1):
+            c = k + step
+            ok = (c <= n_slices) & precedes(((c - 1) * SLICE).clamp(max=n - 1))
+            k = torch.where(ok, c, k)
+        base = (k - 1).clamp(min=0) * SLICE
+        length = torch.where(k > 0, (n - base).clamp(max=SLICE), 0)
+        at = torch.zeros(n, dtype=torch.int64)
+        step = SLICE // 2
+        while step:
+            c = at + step
+            ok = (c < length) & precedes((base + c).clamp(max=n - 1))
+            at = torch.where(ok, c, at)
+            step //= 2
+        mark = torch.where(k > 0, pmax[(base + at).clamp(max=n - 1)],
+                           torch.iinfo(torch.int64).min)
+        out[:, r] = ((ka != U_INF) & (_ordered(kd) > mark).numpy())
+    return out, passes
+
+
+def _admit_batch(n, R, kind, seed):
+    """A realistic DOM batch (lognormal 60 us one-way delays, 2 % drops,
+    deadlines at send + 120 us), the 1/64 tie grid (15 % drops), or a
+    realistic batch whose receivers drop everything; 3 % infinite
+    deadlines, and with R >= 3 the last receiver drops everything."""
+    rng = np.random.default_rng(seed)
+    if kind == "grid":
+        d = rng.integers(0, 4 * 64, n) / 64.0
+        a = rng.integers(0, 6 * 64, (n, R)) / 64.0
+        a[rng.random((n, R)) < 0.15] = np.inf
+    else:
+        send = np.sort(rng.uniform(0, n / 2e5, n))
+        d = send + 120e-6
+        a = send[:, None] + rng.lognormal(np.log(60e-6), 0.6, (n, R))
+        a[rng.random((n, R)) < (1.0 if kind == "dropped" else 0.02)] = np.inf
+    d[rng.random(n) < 0.03] = np.inf
+    if R >= 3:
+        a[:, -1] = np.inf
+    return d, a
+
+
+def _pallas_admit_padded(d, a):
+    """`dom_admit_pallas` in interpret mode, handed its inputs padded to the
+    power-of-two length it pads to itself (+inf deadline and arrival: never
+    admitted, never a watermark), so that calls of one padded length share
+    one compile."""
+    n = d.size
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    dp = np.full(n_pad, np.inf)
+    dp[:n] = d
+    ap = np.full((n_pad, a.shape[1]), np.inf)
+    ap[:n] = a
+    return _pallas_admit(dp, ap)[:n]
+
+
+@pytest.mark.pallas
+@pytest.mark.parametrize("n,R,kind", [
+    (1, 1, "realistic"), (1, 5, "grid"),
+    (1023, 3, "realistic"), (1024, 3, "grid"),
+    (1024, 1, "realistic"), (1024, 1, "dropped"),
+    (1025, 5, "realistic"), (1025, 5, "grid"),
+    (16384, 3, "realistic"), (16384, 3, "grid")])
+def test_admit_small_route_schedule_matches_pallas_numpy_and_plain(n, R,
+                                                                   kind):
+    """The small route's schedule, bit for bit, against the numpy oracle,
+    the Pallas kernel (interpret mode, float64) and the plain version: n at
+    and around one 1024-message slice and the 16384 bucket, R in {1, 3, 5},
+    ties, drops, infinite deadlines, an all-dropped receiver."""
+    d, a = _admit_batch(n, R, kind, seed=n * 10 + R)
+    got, passes = _small_route_twin(d, a)
+    np.testing.assert_array_equal(got, dom_admit_watermark_np(d, a))
+    np.testing.assert_array_equal(got, _pallas_admit_padded(d, a))
+    np.testing.assert_array_equal(got, _port_admit(d, a))
+    for r in range(R):
+        if np.isinf(a[:, r]).all():          # no finite key: no pass
+            assert passes[r] == 0 and not got[:, r].any()
+
+
+@pytest.mark.parametrize("kind", ["realistic", "grid"])
+@pytest.mark.parametrize("n", [1, 2, 1023, 1024, 1025, 2047, 10000, 16383,
+                               16384])
+def test_admit_small_route_schedule_matches_numpy_over_sizes(n, kind):
+    """The same schedule against the numpy oracle and the plain version at
+    R 1, 3 and 5 in one batch each (R 5 holds R 1 and 3's receivers)."""
+    for R in (1, 3, 5):
+        d, a = _admit_batch(n, R, kind, seed=n + R)
+        got, _ = _small_route_twin(d, a)
+        np.testing.assert_array_equal(got, dom_admit_watermark_np(d, a))
+        np.testing.assert_array_equal(got, _port_admit(d, a))
+
+
+def test_admit_small_route_passes_follow_the_compressed_span():
+    """Compression takes the receiver's least finite key off and puts +inf
+    one above the largest: a realistic 16384-message batch needs 7 of the
+    8 passes, keys on one binade's quarter grid one, equal keys none."""
+    d, a = _admit_batch(16384, 3, "realistic", seed=0)
+    assert _small_route_twin(d, a)[1] == [7, 7, 0]
+    d = np.full(64, 0.5)
+    a = np.full((64, 1), 0.25)
+    got, passes = _small_route_twin(d, a)
+    assert passes == [0] and got.all()
+    d = 1.0 + (np.arange(64) % 4) / 4.0
+    a = d[::-1, None].copy()
+    got, passes = _small_route_twin(d, a)
+    assert passes == [1]
+    np.testing.assert_array_equal(got, dom_admit_watermark_np(d, a))
+
+
+@pytest.mark.parametrize("n,route", [(0, "small"), (1, "small"),
+                                     (16383, "small"), (16384, "small"),
+                                     (16385, "onesweep"),
+                                     (1_000_000, "onesweep")])
+def test_admit_route_by_size(n, route):
+    """One cluster a receiver up to the data plane's 16384-message bucket,
+    the onesweep sort above it."""
+    assert admit_mod.admit_route(n) == route
+    assert (n <= admit_mod.SMALL_MAX) == (route == "small")
+
+
+@pytest.mark.parametrize("n", [100, 16384, 16385])
+def test_admit_cpu_tensors_count_no_launch_on_either_route(n):
+    before = (admit_mod.launches, admit_mod.launches_small,
+              admit_mod.launches_onesweep)
+    d, a = _admit_batch(n, 3, "realistic", seed=n)
+    got = admit_mod.dom_admit(torch.as_tensor(d), torch.as_tensor(a))
+    np.testing.assert_array_equal(got.numpy(), dom_admit_watermark_np(d, a))
+    assert (admit_mod.launches, admit_mod.launches_small,
+            admit_mod.launches_onesweep) == before
+
+
+# ---------------------------------------------------------------------------
 # dom_release
 # ---------------------------------------------------------------------------
 @pytest.mark.pallas
