@@ -7,9 +7,9 @@ Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA/nvcc versions;
   2. build of the CUDA kernels from the checkout's sources (seconds), with
      ptxas's registers and spills for each flash_attention instantiation,
-     each kernel of the DOM sorts (dom_admit's cluster kernel among them)
-     and each ssd_scan kernel, and how many of dom_admit's 16-block
-     clusters the card holds at once;
+     each kernel of the DOM sorts (dom_admit's cluster kernel among them),
+     each ssd_scan kernel and the inchash kernel, and how many of
+     dom_admit's 16-block clusters the card holds at once;
   3. each kernel against its plain torch version on the card, exact, on a
      realistic DOM batch (lognormal 60 us one-way delays, 2 % drops,
      deadlines at send + 120 us) at n in {1e4, 1e5, 1e6} and R = 3 and at
@@ -71,20 +71,28 @@ Phases (any failure exits non-zero):
      `LM_KERNELS`: in bf16 this model's own rounding noise exceeds 2^-5),
      and the bf16 kernel-vs-plain figure is printed beside the bf16
      difference between two exact orders of the plain scan;
-  9. the inchash kernel against its plain version on the card, bit for
-     bit, on a seeded log (deadlines around 1.7e18 ns with full high bits,
+  9. the inchash kernel against its plain version on the card, bit for bit,
+     on a seeded log (deadlines around 1.7e18 ns with full high bits,
      client ids below 1000, request ids below 2^40, a few negative values)
-     at n in {1, 255, 256, 257, 333, 16384, 1e6, 2^24}, each also against
-     the 32-bit numpy mirror and its XOR accumulate; timed at 16384, 1e6
-     and 2^24 with CUDA events beside the plain version and the byte
-     bound; then the hash path: each replica's durable log from phase 4's
+     at n in {1, 255, 256, 257, 333, 4095, 4096, 4097, 16384, 1e6, 2^24},
+     each also against the 32-bit numpy mirror and its XOR accumulate;
+     timed at 16384, 1e6 and 2^24 with CUDA events (eager, and replayed
+     from a CUDA graph) beside the plain version and the byte bound; one
+     call captured in a CUDA graph at n 1000 and 2^20 + 7, replayed after
+     new logs were written into its captured inputs, against the plain
+     version; then the hash path: each replica's durable log from phase 4's
      card run (deadlines in ns as the replicas round them) hashed through
      `ops.inchash` on the card with the count reset just before and read
      just after (one launch a replica), held bit for bit against the same
-     hashes of the CPU run's log on the CPU; the replicas' final prefixes
-     must agree, the last prefix must equal the XOR fold of the entry
-     hashes and must not change when the log is permuted; and the kernel
-     against its plain version on that log, timed.
+     hashes of the CPU run's log on the CPU, its wall split into building
+     the columns and the calls; the replicas' final prefixes must agree,
+     the last prefix must equal the XOR fold of the entry hashes and must
+     not change when the log is permuted; the kernel against its plain
+     version on that log, timed; the stream operations of one kernel call
+     (must be 1) and of one `ops.inchash` call (torch.profiler); the hash
+     path once under torch.profiler (device time of the kernels and the
+     copies, busy share); and the host entry against its former three-copy
+     form, in turns.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX or `repro`.
 
@@ -120,12 +128,16 @@ FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:42
 LM_REL_TOL = 2.0 ** -5
 SSD_TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # tests/test_kernels.py:64
 SIZES = (10_000, 100_000, 1_000_000)
-# inchash: the kernel-vs-plain sizes (edges of the 256-entry block scan and
-# the 2048-entry tile, one epoch's padded lanes, a 16.8 s sweep at 1e6
-# req/s) and the timed ones
-INCHASH_SIZES = (1, 255, 256, 257, 333, 16_384, 1_000_000, 1 << 24)
+# inchash: the kernel-vs-plain sizes (edges of the reference's 256-entry
+# block and of the kernel's 4096-entry tile, one epoch's padded lanes, a
+# 16.8 s sweep at 1e6 req/s) and the timed ones
+INCHASH_SIZES = (1, 255, 256, 257, 333, 4095, 4096, 4097, 16_384, 1_000_000,
+                 1 << 24)
 INCHASH_TIMED = (16_384, 1_000_000, 1 << 24)
 INCHASH_BYTES = 24 + 8          # three int64 read, two uint32 written
+# inchash under CUDA-graph replay with new inputs: below one tile, and past
+# 2^20 with a ragged last tile
+INCHASH_GRAPH_SIZES = (1_000, (1 << 20) + 7)
 MAIN_N_PAD = 16_384             # pow2 bucket of ~1e4 requests per epoch
 
 
@@ -195,11 +207,16 @@ def time_graph_ms(fn, reps: int = 20):
     printed reason) when the call cannot be captured."""
     import torch
 
-    fn()
+    # warm on the capture stream itself, so that state a kernel keeps per
+    # stream (inchash's look-back area) is made outside the capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             for _ in range(reps):
                 fn()
     except RuntimeError as exc:
@@ -570,7 +587,8 @@ def synthetic_log(n: int, seed: int = 0):
 def check_inchash(dev, cols, timed: bool = False) -> dict:
     """inchash's kernel == its plain version on the card and == the 32-bit
     numpy mirror and its XOR accumulate, bit for bit; with ``timed``,
-    kernel and plain times in ms beside the byte bound."""
+    kernel (eager and CUDA-graph) and plain times in ms beside the byte
+    bound."""
     import numpy as np
     import torch
 
@@ -597,9 +615,74 @@ def check_inchash(dev, cols, timed: bool = False) -> dict:
     res = {"n": n, "max_abs_err": err}
     if timed:
         res.update(ms=time_ms(lambda: ih.inchash_cuda(*t)),
+                   graph_ms=time_graph_ms(lambda: ih.inchash_cuda(*t)),
                    plain_ms=time_ms(lambda: ih.inchash_plain(*t)),
                    bound_ms=INCHASH_BYTES * n / HBM_BYTES_PER_S * 1e3)
     return res
+
+
+def check_inchash_graph(dev, n: int) -> None:
+    """One inchash call captured in a CUDA graph, replayed after new logs
+    were written into its captured inputs, each replay == the plain version
+    on those inputs; between two replays a smaller eager call on the
+    capture stream shares the graph's look-back area. Raises on a
+    difference."""
+    import torch
+
+    from repro_torch.kernels import inchash as ih
+
+    def same(got, cols):
+        want = ih.inchash_plain(*cols)
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+
+    t = [torch.as_tensor(x, device=dev) for x in synthetic_log(n, seed=7)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ih.inchash_cuda(*t)                   # the stream's area, made here
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = ih.inchash_cuda(*t)
+    small = [torch.as_tensor(x, device=dev)
+             for x in synthetic_log(max(n // 3, 1), seed=9)]
+    for seed in (8, 10):
+        for x, y in zip(t, synthetic_log(n, seed=seed)):
+            x.copy_(torch.as_tensor(y))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same(got, t):
+            raise RuntimeError(f"inchash replayed from a CUDA graph with new "
+                               f"inputs disagrees with its plain version at "
+                               f"n={n} (log seed {seed})")
+        with torch.cuda.stream(stream):
+            eager = ih.inchash_cuda(*small)
+        torch.cuda.synchronize()
+        if not same(eager, small):
+            raise RuntimeError(f"an eager inchash call between two graph "
+                               f"replays disagrees at n={n // 3}")
+
+
+def device_ops(fn, calls: int = 10):
+    """Device operations (kernels, copies, memsets) per call of ``fn`` and
+    their counts by name, from torch.profiler after a warm call; (None, {})
+    when the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    if not ops:
+        return None, {}
+    return sum(ops.values()) / calls, ops
 
 
 def log_hash_columns(cols: dict):
@@ -613,14 +696,71 @@ def log_hash_columns(cols: dict):
     return np.rint(deadline * 1e9).astype(np.int64), cols["cid"], cols["rid"]
 
 
-def replica_log_hashes(cluster, device: str) -> dict:
+def replica_log_hashes(cluster, device: str, entry=None):
     """Each replica's durable log hashed through `ops.inchash` on
-    ``device``: {replica: (h, prefix)} as np.uint32."""
+    ``device`` (or through ``entry``): ({replica: (h, prefix)} as
+    np.uint32, host seconds building the columns, seconds of the hash
+    calls up to a device sync)."""
+    import torch
+
     from repro_torch.kernels import ops
 
-    return {rep: ops.inchash(*log_hash_columns(cols), device=device)
-            for rep, cols in sorted(cluster.engine.logs.replica_log_columns()
-                                    .items())}
+    entry = entry or (lambda *cols: ops.inchash(*cols, device=device))
+    t0 = time.perf_counter()
+    cols = {rep: log_hash_columns(c) for rep, c in sorted(
+        cluster.engine.logs.replica_log_columns().items())}
+    t1 = time.perf_counter()
+    hashes = {rep: entry(*c) for rep, c in cols.items()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return hashes, t1 - t0, time.perf_counter() - t1
+
+
+def three_copy_entry(d, c, r):
+    """`ops.inchash` on the card as it stood before its pinned staging
+    (each column cast to int64 on the host and sent in its own pageable
+    copy, h and prefix pulled back in two copies), with the same kernel:
+    the other side of phase 9's host-entry A/B."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import inchash as ih
+
+    cols = (torch.as_tensor(np.asarray(x).astype(np.int64), device="cuda")
+            for x in (d, c, r))
+    h, prefix = ih.inchash_cuda(*cols)
+    return h.cpu().numpy(), prefix.cpu().numpy()
+
+
+def profile_hash_path(cluster) -> dict:
+    """One run of the hash path under torch.profiler after a warm one: its
+    wall (profiler on), the device time of the inchash kernels, of the
+    copies and of anything else, the device's busy share (device time
+    over the wall; one stream, so the times do not overlap), and the host
+    operators with the most self time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    replica_log_hashes(cluster, "cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, cols_s, _ = replica_log_hashes(cluster, "cuda")
+        wall = time.perf_counter() - t0
+    us = {"kernel": 0.0, "copies": 0.0, "other": 0.0}
+    host = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.self_cpu_time_total / 1e3, e.key, e.count))
+            continue
+        kind = ("kernel" if "inchash" in e.key else
+                "copies" if "memcpy" in e.key.lower() else "other")
+        us[kind] += e.self_device_time_total
+    return {"wall_ms": wall * 1e3, "columns_ms": cols_s * 1e3,
+            **{f"{k}_ms": v / 1e3 for k, v in us.items()},
+            "busy_share": sum(us.values()) / 1e3 / (wall * 1e3),
+            "host_ms_by_op": {f"{key} (x{count})": ms for ms, key, count
+                              in sorted(host, reverse=True)[:6]}}
 
 
 # The LM paths of phases 6 and 8: each runs every prefill layer through one
@@ -962,7 +1102,8 @@ def main() -> int:
     for line in ptxas_summary(log.getvalue(), ("fa_tc", "flash_attention",
                                                "release_small",
                                                "admit_small",
-                                               "onesweep_", "ssd_")):
+                                               "onesweep_", "ssd_",
+                                               "inchash_")):
         print(f"  ptxas {line}")
     from repro_torch.kernels import dom_admit as admit_mod
 
@@ -1164,6 +1305,9 @@ def main() -> int:
     from repro_torch.kernels import inchash as inchash_mod
     from repro_torch.kernels import ops
 
+    def ms5(x):
+        return "not measured" if x is None else f"{x:.5f}"
+
     print("inchash (kernel vs plain on the card, bit for bit):")
     ih_rows = []
     for n in INCHASH_SIZES:
@@ -1172,22 +1316,28 @@ def main() -> int:
         ih_rows.append(r)
         line = f"  n {n}: equal to the plain version and the numpy mirror"
         if "ms" in r:
-            line += (f", {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-                     f"bound {r['bound_ms']:.6f} ms (bytes)")
+            line += (f", {r['ms']:.5f} ms (graph {ms5(r['graph_ms'])}), "
+                     f"plain {r['plain_ms']:.5f} ms, bound "
+                     f"{r['bound_ms']:.6f} ms (bytes)")
         print(line)
     torch.cuda.empty_cache()
+    for n in INCHASH_GRAPH_SIZES:
+        check_inchash_graph(dev, n)
+        print(f"  n {n}: one call captured in a CUDA graph, replayed after "
+              f"two new logs were written into its inputs (a smaller eager "
+              f"call on the capture stream between them): equal to the "
+              f"plain version")
+    torch.cuda.empty_cache()
     inchash_mod.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    card_hashes = replica_log_hashes(gpu_cl, "cuda")
-    torch.cuda.synchronize()
-    hash_s = time.perf_counter() - t0
+    card_hashes, cols_s, calls_s = replica_log_hashes(gpu_cl, "cuda")
     ih_launches = inchash_mod.launches
-    cpu_hashes = replica_log_hashes(cpu_cl, "cpu")
+    cpu_hashes, _, _ = replica_log_hashes(cpu_cl, "cpu")
     n_log = {rep: len(h) for rep, (h, _) in card_hashes.items()}
     print(f"hash path: the replica logs of the phase-4 card run, entries "
           f"{json.dumps(n_log)}, {ih_launches} inchash launches, wall "
-          f"{hash_s:.4f} s")
+          f"{(cols_s + calls_s) * 1e3:.4f} ms (building the columns "
+          f"{cols_s * 1e3:.4f} ms, the {len(card_hashes)} ops.inchash calls "
+          f"{calls_s * 1e3:.4f} ms)")
     if ih_launches != len(card_hashes):
         return fail(f"the hash path launched inchash {ih_launches} times, "
                     f"not once per replica ({len(card_hashes)})")
@@ -1216,10 +1366,38 @@ def main() -> int:
     print(f"  card hashes == the CPU run's, bit for bit; final prefix "
           f"{finals.pop():#010x} on every replica, equal to the XOR fold and "
           f"unchanged under a permutation; kernel on the log (n "
-          f"{ih_main['n']}): {ih_main['ms']:.5f} ms, plain "
-          f"{ih_main['plain_ms']:.5f} ms, bound {ih_main['bound_ms']:.6f} ms "
-          f"(bytes); library: none (no single PyTorch call computes an XOR "
-          f"scan)")
+          f"{ih_main['n']}): {ih_main['ms']:.5f} ms (graph "
+          f"{ms5(ih_main['graph_ms'])}), plain {ih_main['plain_ms']:.5f} ms, "
+          f"bound {ih_main['bound_ms']:.6f} ms (bytes); library: none (no "
+          f"single PyTorch call computes an XOR scan)")
+    log_t = [torch.as_tensor(x, device=dev) for x in path_cols]
+    ih_ops, ih_op_names = device_ops(lambda: inchash_mod.inchash_cuda(*log_t))
+    entry_ops, entry_op_names = device_ops(lambda: ops.inchash(*path_cols))
+    print(f"  stream operations per call (torch.profiler): inchash_cuda "
+          f"{ih_ops} {json.dumps(ih_op_names)}; ops.inchash {entry_ops} "
+          f"{json.dumps(entry_op_names)}")
+    if ih_ops is not None and ih_ops != 1:
+        return fail(f"an inchash call took {ih_ops} stream operations, not 1")
+    prof_hash = profile_hash_path(gpu_cl)
+    print(f"  hash path under torch.profiler: wall "
+          f"{prof_hash['wall_ms']:.4f} ms (profiler on; columns "
+          f"{prof_hash['columns_ms']:.4f} ms), device: inchash kernels "
+          f"{prof_hash['kernel_ms']:.4f} ms, copies "
+          f"{prof_hash['copies_ms']:.4f} ms, other "
+          f"{prof_hash['other_ms']:.4f} ms; busy share "
+          f"{prof_hash['busy_share']:.4f}; host ms by op (self) "
+          f"{json.dumps(prof_hash['host_ms_by_op'])}")
+    entry_ab = {"pinned": [], "three_copies": []}
+    for variant in ("pinned", "three_copies", "three_copies", "pinned") * 3:
+        entry = None if variant == "pinned" else three_copy_entry
+        got, _, s_calls = replica_log_hashes(gpu_cl, "cuda", entry)
+        if any(got[rep][1].tobytes() != card_hashes[rep][1].tobytes()
+               for rep in got):
+            return fail(f"the {variant} host entry's hashes differ")
+        entry_ab[variant].append(s_calls * 1e3)
+    print(f"  host entry A/B, the 3 calls' ms in turns: pinned staging "
+          f"{json.dumps([round(x, 4) for x in entry_ab['pinned']])}, three "
+          f"pageable copies {json.dumps([round(x, 4) for x in entry_ab['three_copies']])}")
 
     record = {"kernels": []}
     for name, src, replaces in (
@@ -1297,8 +1475,13 @@ def main() -> int:
         "ms": ih_main["ms"], "plain_ms": ih_main["plain_ms"],
         "bound_ms": ih_main["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "n": ih_main["n"],
-        "sizes": [{k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
-                  for r in ih_rows if "ms" in r]})
+        "graph_ms": ih_main["graph_ms"], "stream_ops": ih_ops,
+        "sizes": [{k: r[k] for k in ("n", "ms", "graph_ms", "plain_ms",
+                                     "bound_ms")}
+                  for r in ih_rows if "ms" in r],
+        "hash_path": {"columns_ms": cols_s * 1e3, "calls_ms": calls_s * 1e3,
+                      "entry_stream_ops": entry_ops,
+                      "profiled": prof_hash, "entry_ab_ms": entry_ab}})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

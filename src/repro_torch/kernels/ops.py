@@ -20,7 +20,9 @@ import torch
 from repro_torch.kernels.dom_admit import dom_admit as _admit
 from repro_torch.kernels.dom_release import dom_release
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.inchash import _check as _check_columns
 from repro_torch.kernels.inchash import inchash as _inchash
+from repro_torch.kernels.inchash import inchash_cuda as _inchash_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 
@@ -92,12 +94,32 @@ inchash_device = _inchash
 def inchash(deadline_ns, client_id, request_id, *,
             device="cuda") -> tuple[np.ndarray, np.ndarray]:
     """Host entry: numpy integer columns in (their low 32 bits are hashed),
-    (h, prefix) np.uint32 [n] out."""
+    (h, prefix) np.uint32 [n] out.
+
+    On the card: the three columns staged in one pinned [3, n] buffer and
+    sent in one non-blocking copy, h and prefix written into one [2, n]
+    buffer and pulled back in one copy (into a new array, so the result
+    aliases nothing a later call writes). Columns that are int64 and
+    contiguous are not copied on the host before the staging."""
     dev = resolve_device(device)
-    cols = (torch.as_tensor(np.asarray(x).astype(np.int64), device=dev)
-            for x in (deadline_ns, client_id, request_id))
-    h, prefix = _inchash(*cols)
-    return h.cpu().numpy(), prefix.cpu().numpy()
+    cols = [np.ascontiguousarray(x, dtype=np.int64)
+            for x in (deadline_ns, client_id, request_id)]
+    tensors = [torch.from_numpy(x) for x in cols]
+    if dev.type == "cpu":
+        h, prefix = _inchash(*tensors)
+        return h.numpy(), prefix.numpy()
+    _check_columns(*tensors)
+    n = cols[0].shape[0]
+    staging = torch.empty((3, n), dtype=torch.int64, pin_memory=True)
+    for row, x in zip(staging.numpy(), cols):
+        # numpy's one-thread copy: torch's copy_ splits a copy this size
+        # over its OpenMP threads, which can stall on a host whose cores
+        # are shared
+        np.copyto(row, x)
+    out = torch.empty((2, n), dtype=torch.uint32, device=dev)
+    _inchash_cuda(*staging.to(dev, non_blocking=True), out=out)
+    h, prefix = out.cpu().numpy()
+    return h, prefix
 
 
 __all__ = ["resolve_device", "attention", "ssd_scan", "dom_admit", "dom_admit_device", "dom_release",

@@ -2,7 +2,9 @@
 runs of the cluster against CPU runs, bit for bit, the LM paths through
 the flash-attention and SSD-scan kernels against the same paths on their
 plain versions, and the inchash kernel against its plain version and the
-32-bit numpy mirror, bit for bit.
+32-bit numpy mirror, bit for bit, eagerly, across calls that shrink and
+grow, on two streams at once and replayed from a CUDA graph with new
+inputs, in one stream operation a call.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -721,6 +723,118 @@ def test_inchash_host_entry_runs_on_the_card(dev):
     for a, b in zip(got, want):
         assert a.dtype == np.uint32
         np.testing.assert_array_equal(a, b)
+
+
+def _equal_plain(got, cols):
+    want = inchash_mod.inchash_plain(*cols)
+    return all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def test_inchash_shrinking_and_growing_calls_equal_plain(dev):
+    """Back-to-back calls on one stream, no sync between them: smaller after
+    larger, and larger than the work area holds (which grows it)."""
+    sizes = [3 * T + 1, 100_003, 1, T, (1 << 20) + 5, 257, 2_000_003, 5,
+             (1 << 20) + 5]
+    logs = [[torch.as_tensor(x, device=dev) for x in _log(n, seed=40 + i)]
+            for i, n in enumerate(sizes)]
+    before = inchash_mod.launches
+    outs = [inchash_mod.inchash_cuda(*cols) for cols in logs]
+    torch.cuda.synchronize()
+    assert inchash_mod.launches == before + len(sizes)
+    for n, got, cols in zip(sizes, outs, logs):
+        assert _equal_plain(got, cols), n
+
+
+def _capture_stream(dev, fn):
+    """A side stream on which ``fn`` has run once (its work area made)."""
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    return stream
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 20) + 7])
+def test_inchash_graph_replay_with_new_inputs_equals_plain(dev, n):
+    cols = [torch.as_tensor(x, device=dev) for x in _log(n, seed=50)]
+    stream = _capture_stream(dev, lambda: inchash_mod.inchash_cuda(*cols))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = inchash_mod.inchash_cuda(*cols)
+    small = [torch.as_tensor(x, device=dev)
+             for x in _log(max(n // 3, 1), seed=51)]
+    for seed in (52, 53, 54):
+        for x, y in zip(cols, _log(n, seed=seed)):
+            x.copy_(torch.as_tensor(y))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _equal_plain(got, cols), seed
+        with torch.cuda.stream(stream):       # the graph's area, eagerly
+            eager = inchash_mod.inchash_cuda(*small)
+        torch.cuda.synchronize()
+        assert _equal_plain(eager, small)
+
+
+def _device_ops(fn, calls=5):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("n", [333, 180_191, 1 << 22])
+def test_inchash_call_is_one_stream_operation(dev, n):
+    cols = [torch.as_tensor(x, device=dev) for x in _log(n, seed=60)]
+    ops_by_name = _device_ops(lambda: inchash_mod.inchash_cuda(*cols))
+    assert sum(ops_by_name.values()) == 5, ops_by_name
+    assert all("inchash" in k for k in ops_by_name), ops_by_name
+
+
+def test_inchash_host_entry_is_three_stream_operations(dev):
+    """One copy in, the kernel, one copy back."""
+    d, c, r = _log(180_191, seed=61)
+    ops_by_name = _device_ops(lambda: ops.inchash(d, c, r))
+    assert sum(ops_by_name.values()) == 3 * 5, ops_by_name
+    kernels = sum(v for k, v in ops_by_name.items() if "inchash" in k)
+    assert kernels == 5, ops_by_name
+
+
+def test_inchash_streams_running_at_once_each_equal_plain(dev):
+    """Each stream has its own work area: calls on two streams interleave
+    without a sync and each result equals the plain version."""
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    logs = [[torch.as_tensor(x, device=dev) for x in _log(n, seed=70 + n)]
+            for n in (1 << 21, 3 * T + 5, (1 << 21) + 3, 999)]
+    torch.cuda.synchronize()
+    outs = []
+    for rep in range(3):
+        for i, cols in enumerate(logs):
+            with torch.cuda.stream(streams[i % 2]):
+                outs.append((inchash_mod.inchash_cuda(*cols), cols))
+    torch.cuda.synchronize()
+    for got, cols in outs:
+        assert _equal_plain(got, cols)
+
+
+def test_inchash_host_entry_results_alias_no_later_call(dev):
+    d, c, r = _log(4099, seed=80)
+    h, pf = ops.inchash(d, c, r)
+    keep = h.copy(), pf.copy()
+    d2, c2, r2 = _log(4099, seed=81)
+    h2, pf2 = ops.inchash(d2.astype(np.int32), c2[::-1], r2)
+    np.testing.assert_array_equal(h, keep[0])
+    np.testing.assert_array_equal(pf, keep[1])
+    want = ops.inchash(d2.astype(np.int32), c2[::-1], r2, device="cpu")
+    np.testing.assert_array_equal(h2, want[0])
+    np.testing.assert_array_equal(pf2, want[1])
 
 
 class _FailingLaunch:
