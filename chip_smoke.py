@@ -92,8 +92,22 @@ Phases (any failure exits non-zero):
      (must be 1) and of one `ops.inchash` call (torch.profiler); the hash
      path once under torch.profiler (device time of the kernels and the
      copies, busy share); and the host entry against its former three-copy
-     form, in turns.
-The last lines are the kernels' JSON record, the nvidia-smi line and
+     form, in turns;
+ 10. the scenario catalog (`repro_torch.sim.scenario`): all 28 scenarios at
+     their own settings through `run_scenario_with_trace`, on the card and
+     on the CPU, which must agree bit for bit (every result key and raw
+     summary key but ``tier``, the commit trace, the checkers' findings),
+     with the DOM launch counts reset just before each run and read just
+     after (each epoch with requests must launch each kernel once, on
+     either route; the CPU runs none); for the ten scenarios with a paired
+     invariant (all but `sharded-multi-key`) the checker must fire on the
+     faulted run and every adversarial checker stay silent on `control()`,
+     on the card as on the CPU; then six scenarios (`SCALE_SCENARIOS`) at
+     phase 4's 1e6 req/s (10 clients x 1e5, epochs_per_dispatch 16, the
+     rest the catalog's), card == CPU, printing the launches by route, the
+     most lanes of any epoch and the walls.
+The last lines are the kernels' JSON record (the DOM records also carry
+phase 10's launches by route), the nvidia-smi line and
 {"ok": true, "device": {...}}. The script imports nothing of JAX or `repro`.
 
 ``python3 chip_smoke.py --profile`` instead runs phases 1-2, then the
@@ -1058,6 +1072,242 @@ def profile_lm_path(dev, arch: str) -> None:
         print(events.table(sort_by="self_cpu_time_total", row_limit=12))
 
 
+# Phase 10: the scenario catalog, and six scenarios -- one or more from each
+# fault family -- at phase 4's 1e6 req/s (10 clients x 1e5, K = 16).
+SCALE_SCENARIOS = ("leader-crash", "total-outage", "clock-skew-proxy-capped",
+                   "leader-minority-partition", "ack-without-persist",
+                   "sync-daemon-outage")
+SCALE_RATE_PER_CLIENT = 1e5
+TRACE_PARTS = ("log", "commits", "stamps", "sync", "durability",
+               "replica_logs", "net_windows", "order_scope")
+
+
+def first_difference(a, b, where: str = ""):
+    """The path of the first bit-level difference between two nested
+    results (dicts, lists, arrays, numbers), or None."""
+    import numpy as np
+
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+        return None if same else where
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return where
+        for k in a:
+            d = first_difference(a[k], b[k], f"{where}[{k!r}]")
+            if d is not None:
+                return d
+        return None
+    if isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            return where
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = first_difference(x, y, f"{where}[{i}]")
+            if d is not None:
+                return d
+        return None
+    if isinstance(a, float) and isinstance(b, float) and a != a and b != b:
+        return None
+    return None if (a == b and type(a) is type(b)) else where
+
+
+@contextlib.contextmanager
+def dispatch_probe():
+    """Record (lanes, padded lanes) of every epoch-body dispatch, that is of
+    every epoch with requests, whether single or inside a K-epoch window."""
+    from repro_torch.core.engine import DomEngine
+
+    lanes = []
+    make_body = DomEngine._body
+
+    def probed(self, use_kcls, use_cap):
+        body = make_body(self, use_kcls, use_cap)
+
+        def run(*args, **kw):
+            lanes.append((int(args[11]), int(args[3].shape[0])))
+            return body(*args, **kw)
+        return run
+
+    DomEngine._body = probed
+    try:
+        yield lanes
+    finally:
+        DomEngine._body = make_body
+
+
+def dom_counts() -> dict:
+    from repro_torch.kernels import dom_admit, dom_release
+
+    return {name: {"small": mod.launches_small,
+                   "onesweep": mod.launches_onesweep}
+            for name, mod in (("dom_admit", dom_admit),
+                              ("dom_release", dom_release))}
+
+
+def reset_dom_counts() -> None:
+    from repro_torch.kernels import dom_admit, dom_release
+
+    for mod in (dom_admit, dom_release):
+        mod.launches = mod.launches_small = mod.launches_onesweep = 0
+
+
+def run_scenario_traced(scenario, device: str, config=None) -> dict:
+    """One scenario through `run_scenario_with_trace` with the DOM launch
+    counts reset just before and read just after, and every dispatch
+    probed. On the card each dispatch must launch each DOM kernel once; on
+    the CPU (plain versions) none may launch."""
+    import torch
+
+    from repro_torch.sim.trace import run_scenario_with_trace
+
+    reset_dom_counts()
+    with dispatch_probe() as lanes:
+        t0 = time.perf_counter()
+        res, trace = run_scenario_with_trace(
+            "nezha-vectorized", scenario, device=device, config=config)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dom_counts()
+    want = len(lanes) if device == "cuda" else 0
+    for name, by_route in counts.items():
+        if sum(by_route.values()) != want:
+            raise RuntimeError(
+                f"{res.scenario} on {device}: {name} launched "
+                f"{json.dumps(by_route)} for {len(lanes)} epochs with "
+                f"requests (want {want})")
+    return {"res": res, "trace": trace, "wall": wall, "counts": counts,
+            "dispatches": len(lanes),
+            "max_lanes": max((n for n, _ in lanes), default=0),
+            "max_padded": max((p for _, p in lanes), default=0)}
+
+
+def findings(trace) -> list:
+    from repro_torch.sim.trace import check_adversarial, check_trace
+
+    return [x.replace(trace.label, "<trace>")
+            for x in check_trace(trace) + check_adversarial(trace)]
+
+
+def card_equals_cpu(card: dict, cpu: dict) -> None:
+    """Card run == CPU run, bit for bit: every result key and raw summary
+    key but ``tier``, the commit trace, and the findings."""
+    from repro_torch.sim.scenario import SCENARIO_RESULT_KEYS
+
+    name = card["res"].scenario
+    pairs = [(k, getattr(card["res"], k), getattr(cpu["res"], k))
+             for k in SCENARIO_RESULT_KEYS if k != "tier"]
+    pairs.append(("raw", {k: v for k, v in card["res"].raw.items()
+                          if k != "tier"},
+                  {k: v for k, v in cpu["res"].raw.items() if k != "tier"}))
+    pairs += [(p, getattr(card["trace"], p), getattr(cpu["trace"], p))
+              for p in TRACE_PARTS]
+    pairs.append(("findings", findings(card["trace"]),
+                  findings(cpu["trace"])))
+    for key, a, b in pairs:
+        d = first_difference(a, b, key)
+        if d is not None:
+            raise RuntimeError(f"{name}: the card and the CPU differ at {d}")
+    if card["res"].tier != "torch-cuda" or cpu["res"].tier != "torch-cpu":
+        raise RuntimeError(f"{name}: tiers {card['res'].tier}, "
+                           f"{cpu['res'].tier}")
+
+
+def scenario_line(card: dict, cpu: dict) -> str:
+    r = card["res"]
+    return (f"  {r.scenario}: {r.n_requests} requests, {r.committed} "
+            f"committed, fast ratio {r.fast_commit_ratio:.4f}, median "
+            f"{r.median_latency * 1e6:.1f} us, p90 {r.p90_latency * 1e6:.1f} "
+            f"us, view changes {r.view_changes}, recovered "
+            f"{r.recovered_entries}, faults applied {r.applied_faults} "
+            f"skipped {r.skipped_faults}, findings {len(findings(card['trace']))}"
+            f", {card['dispatches']} epochs with requests (most lanes "
+            f"{card['max_lanes']}, bucket {card['max_padded']}), dom_admit "
+            f"{json.dumps(card['counts']['dom_admit'])} dom_release "
+            f"{json.dumps(card['counts']['dom_release'])}, wall card "
+            f"{card['wall']:.3f} s, CPU {cpu['wall']:.3f} s")
+
+
+def drive_scenarios() -> dict:
+    """Phase 10: every cataloged scenario at its own settings, then the six
+    of `SCALE_SCENARIOS` at 1e6 req/s, each on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.sim import scenario as sc_mod
+    from repro_torch.sim.trace import ADVERSARIAL_CHECKS, check_adversarial
+
+    totals = {"catalog": {}, "at_1e6": {}}
+
+    def add(where, counts):
+        for name, by_route in counts.items():
+            acc = totals[where].setdefault(name, {"small": 0, "onesweep": 0})
+            for route, n in by_route.items():
+                acc[route] += n
+
+    print(f"scenario catalog ({len(sc_mod.available_scenarios())} "
+          f"scenarios at their own settings; card == CPU, bit for bit):")
+    paired = 0
+    t_phase = time.perf_counter()
+    for name in sc_mod.available_scenarios():
+        card = run_scenario_traced(name, "cuda")
+        cpu = run_scenario_traced(name, "cpu")
+        card_equals_cpu(card, cpu)
+        add("catalog", card["counts"])
+        print(scenario_line(card, cpu))
+        sc = sc_mod.get_scenario(name)
+        if sc.invariant is None or sc.invariant == "cross-group":
+            continue
+        got = ADVERSARIAL_CHECKS[sc.invariant](card["trace"])
+        ctl = run_scenario_traced(sc.control(), "cuda")
+        ctl_cpu = run_scenario_traced(sc.control(), "cpu")
+        card_equals_cpu(ctl, ctl_cpu)
+        add("catalog", ctl["counts"])
+        silent = check_adversarial(ctl["trace"])
+        print(f"    paired invariant {sc.invariant!r}: {len(got)} "
+              f"finding(s) on the faulted run, {len(silent)} on the "
+              f"control (card == CPU)")
+        if not got or silent:
+            raise RuntimeError(f"{name}: the paired invariant "
+                               f"{sc.invariant!r} gave {len(got)} on the "
+                               f"fault and {len(silent)} on the control")
+        paired += 1
+    if paired != 10:
+        raise RuntimeError(f"{paired} paired invariants held, not 10")
+    catalog_s = time.perf_counter() - t_phase
+    print(f"  catalog: {paired} paired invariants fire on the fault and "
+          f"stay silent on the control; DOM launches by route "
+          f"{json.dumps(totals['catalog'])}; {catalog_s:.1f} s")
+
+    print(f"six scenarios at 1e6 req/s (10 clients x "
+          f"{SCALE_RATE_PER_CLIENT:g}, epochs_per_dispatch 16):")
+    walls = {}
+    for name in SCALE_SCENARIOS:
+        sc = sc_mod.get_scenario(name)
+        sc = dataclasses.replace(sc, workload=dataclasses.replace(
+            sc.workload, rate_per_client=SCALE_RATE_PER_CLIENT))
+        cfg = dataclasses.replace(
+            sc_mod.build_config("nezha-vectorized", sc),
+            epochs_per_dispatch=16)
+        card = run_scenario_traced(sc, "cuda", cfg)
+        cpu = run_scenario_traced(sc, "cpu", cfg)
+        card_equals_cpu(card, cpu)
+        add("at_1e6", card["counts"])
+        print(scenario_line(card, cpu))
+        if sc.invariant is not None:
+            got = ADVERSARIAL_CHECKS[sc.invariant](card["trace"])
+            print(f"    paired invariant {sc.invariant!r}: {len(got)} "
+                  f"finding(s): {json.dumps(got)}")
+        walls[name] = {"card_s": card["wall"], "cpu_s": cpu["wall"],
+                       "requests": card["res"].n_requests,
+                       "max_lanes": card["max_lanes"],
+                       "launches_by_route": card["counts"]}
+    print(f"  at 1e6 req/s: DOM launches by route "
+          f"{json.dumps(totals['at_1e6'])}")
+    return {"totals": totals, "walls": walls, "catalog_s": catalog_s}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1399,6 +1649,9 @@ def main() -> int:
           f"{json.dumps([round(x, 4) for x in entry_ab['pinned']])}, three "
           f"pageable copies {json.dumps([round(x, 4) for x in entry_ab['three_copies']])}")
 
+    # -- 10. the scenario catalog on the card ---------------------------------
+    scen = drive_scenarios()
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -1432,6 +1685,9 @@ def main() -> int:
             entry["sizes"] = [{k: x[k] for k in (
                 "n", "route", "ms", "graph_ms", "plain_ms", "bound_ms",
                 "library_ms", "library_graph_ms")} for x in release_rows]
+        entry["scenario_launches_by_route"] = {
+            where: by_kernel[name]
+            for where, by_kernel in scen["totals"].items()}
         record["kernels"].append(entry)
     r = fa_main["bfloat16"]
     record["kernels"].append({

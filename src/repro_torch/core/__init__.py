@@ -6,7 +6,11 @@ from repro_torch.core.cluster import (
     summarize_commits,
 )
 from repro_torch.core.hashing import IncrementalHash, PerKeyHashTable
-from repro_torch.core.registry import available_clusters, make_cluster
+from repro_torch.core.registry import (
+    available_clusters,
+    config_class,
+    make_cluster,
+)
 from repro_torch.core.vectorized_cluster import (
     VectorizedConfig,
     VectorizedNezhaCluster,
@@ -14,6 +18,7 @@ from repro_torch.core.vectorized_cluster import (
 )
 
 __all__ = ["SUMMARY_REQUIRED_KEYS", "Cluster", "CommonConfig",
-           "summarize_commits", "available_clusters", "make_cluster",
+           "summarize_commits", "available_clusters", "config_class",
+           "make_cluster",
            "VectorizedConfig", "VectorizedNezhaCluster",
            "config_from_reference", "IncrementalHash", "PerKeyHashTable"]

@@ -38,6 +38,12 @@ def available_clusters() -> tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def config_class(name: str) -> type:
+    """The config dataclass a registered cluster is constructed from --
+    the scenario layer builds environment-specific configs against it."""
+    return _entry(name).config_cls
+
+
 def _entry(name: str) -> ClusterEntry:
     entry = _REGISTRY.get(name)
     if entry is None:
@@ -66,4 +72,5 @@ def make_cluster(name: str, config: Optional[CommonConfig] = None,
     return entry.factory(_coerce_config(config, entry.config_cls), **kw)
 
 
-__all__ = ["make_cluster", "available_clusters", "ClusterEntry"]
+__all__ = ["make_cluster", "available_clusters", "config_class",
+           "ClusterEntry"]

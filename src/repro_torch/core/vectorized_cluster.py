@@ -49,7 +49,6 @@ from repro_torch.core.quorum import leader_of_view, n_replicas
 from repro_torch.core.recovery import pack_uids
 from repro_torch.sim.network import CloudNetwork
 from repro_torch.sim.network import NetworkParams
-from repro_torch.sim.scenario import _clock_targets, _link_nodes
 from repro_torch.sim.transport import CpuParams
 
 
@@ -369,6 +368,8 @@ class VectorizedNezhaCluster(Cluster):
             # Resolve src/dst selectors (fail at schedule time, not mid-run)
             # to directed (proxy, replica) pair sets: the vectorized data
             # plane's only per-pair paths are proxy<->replica legs.
+            from repro_torch.sim.scenario import _link_nodes
+
             r_src, p_src = _link_nodes(event.src, self.n, self.cfg.n_proxies)
             r_dst, p_dst = _link_nodes(event.dst, self.n, self.cfg.n_proxies)
             pairs = []
@@ -414,6 +415,8 @@ class VectorizedNezhaCluster(Cluster):
     def _sync_nodes(self, selector) -> tuple[int, ...]:
         """Resolve a clock-target selector to sync-daemon node ids
         (replicas 0..R-1, proxies R..R+P-1); fails at schedule time."""
+        from repro_torch.sim.scenario import _clock_targets
+
         if selector == "all":
             return tuple(range(self.n + self.cfg.n_proxies))
         out = []

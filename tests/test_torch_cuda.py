@@ -4,7 +4,8 @@ the flash-attention and SSD-scan kernels against the same paths on their
 plain versions, and the inchash kernel against its plain version and the
 32-bit numpy mirror, bit for bit, eagerly, across calls that shrink and
 grow, on two streams at once and replayed from a CUDA graph with new
-inputs, in one stream operation a call.
+inputs, in one stream operation a call; and cataloged scenarios of
+`repro_torch.sim.scenario` on the card against their CPU runs, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -12,6 +13,8 @@ runs where only the port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,16 @@ from repro_torch.kernels import inchash as inchash_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.sim.network import NetworkParams
+from repro_torch.sim.scenario import (
+    SCENARIO_RESULT_KEYS,
+    build_config,
+    get_scenario,
+)
+from repro_torch.sim.trace import (
+    check_adversarial,
+    check_trace,
+    run_scenario_with_trace,
+)
 from repro_torch.sim.workload import Workload, WorkloadDriver
 
 pytestmark = pytest.mark.cuda
@@ -894,3 +907,77 @@ def test_dom_kernels_raise_when_their_build_or_launch_fails(dev, monkeypatch,
     with pytest.raises(RuntimeError, match="dom_admit kernel launch failed"):
         admit_mod.dom_admit(dt, at)
     assert (_routes(), _admit_routes()) == before
+
+
+def _scenario_pair(scenario, config=None):
+    """One scenario on the card and on the CPU, with the DOM launch counts
+    of the card run: (card result, card trace, CPU result, CPU trace,
+    counts)."""
+    for mod in (admit_mod, release_mod):
+        mod.launches = mod.launches_small = mod.launches_onesweep = 0
+    card = run_scenario_with_trace("nezha-vectorized", scenario,
+                                   device="cuda", config=config)
+    counts = tuple({"small": m.launches_small, "onesweep": m.launches_onesweep}
+                   for m in (admit_mod, release_mod))
+    cpu = run_scenario_with_trace("nezha-vectorized", scenario,
+                                  device="cpu", config=config)
+    return (*card, *cpu, counts)
+
+
+def _same(a, b, where=""):
+    """Bit-for-bit equality through nested dicts, lists and arrays."""
+    if isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), where
+    elif isinstance(a, dict):
+        assert set(a) == set(b), where
+        for k in a:
+            _same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b or (a != a and b != b), (where, a, b)
+
+
+def _assert_card_equals_cpu(res_g, tr_g, res_c, tr_c):
+    assert (res_g.tier, res_c.tier) == ("torch-cuda", "torch-cpu")
+    for key in SCENARIO_RESULT_KEYS:
+        if key != "tier":
+            _same(getattr(res_g, key), getattr(res_c, key), key)
+    for part in ("log", "commits", "stamps", "sync", "durability",
+                 "replica_logs", "net_windows"):
+        _same(getattr(tr_g, part), getattr(tr_c, part), part)
+    assert _findings(tr_g) == _findings(tr_c)
+
+
+def _findings(tr):
+    return [x.replace(tr.label, "<trace>")
+            for x in check_adversarial(tr) + check_trace(tr)]
+
+
+@pytest.mark.parametrize("name", ["leader-crash", "total-outage",
+                                  "split-brain-attempt", "flapping-links",
+                                  "skewed-proxy", "clock-leap",
+                                  "intra-zone-closed", "wan"])
+def test_scenario_on_the_card_equals_the_cpu(dev, name):
+    """A cataloged scenario through `run_scenario_with_trace` on the card
+    equals its CPU run bit for bit (result, trace, findings), with one
+    launch of each DOM kernel per epoch with requests."""
+    res_g, tr_g, res_c, tr_c, (admit, release) = _scenario_pair(name)
+    _assert_card_equals_cpu(res_g, tr_g, res_c, tr_c)
+    assert res_g.committed > 0
+    assert admit["small"] > 0 and admit == release
+
+
+def test_total_outage_at_1e6_takes_the_onesweep_route_on_the_card(dev):
+    """`total-outage` at 1e6 req/s (10 clients x 1e5, K 16): the epoch
+    after the relaunch holds ~8e4 lanes, past the small routes, so both
+    DOM kernels run their onesweep route on the main path; card == CPU."""
+    sc = get_scenario("total-outage")
+    sc = replace(sc, workload=replace(sc.workload, rate_per_client=1e5))
+    cfg = replace(build_config("nezha-vectorized", sc),
+                  epochs_per_dispatch=16)
+    res_g, tr_g, res_c, tr_c, (admit, release) = _scenario_pair(sc, cfg)
+    _assert_card_equals_cpu(res_g, tr_g, res_c, tr_c)
+    assert admit["onesweep"] > 0 and admit == release
