@@ -105,10 +105,30 @@ Phases (any failure exits non-zero):
      on the card as on the CPU; then six scenarios (`SCALE_SCENARIOS`) at
      phase 4's 1e6 req/s (10 clients x 1e5, epochs_per_dispatch 16, the
      rest the catalog's), card == CPU, printing the launches by route, the
-     most lanes of any epoch and the walls.
+     most lanes of any epoch and the walls;
+ 11. `nezha-sharded` (`repro_torch.core.sharded`): both DOM kernels batched
+     over G groups -- one launch for all G -- against their plain versions
+     and against G separate launches, bit for bit, at (G, lanes) in
+     {(4, 16384), (16, 4096), (64, 1024)} (small route) and (2, 65536)
+     (onesweep route), each timed (eager and from a CUDA graph) beside the
+     G separate launches, the plain version and the byte bound; then the
+     deployment of `benchmarks/dom_scale.py`'s sharded sweep (1e6
+     single-key writes over 2^20 keys in 16 epochs of 10 ms, 64 clients, 3
+     replicas a group, seed 0) at G 1 (`nezha-sharded` == `nezha-vectorized`)
+     and at G 4, 16 and 64 sequential and batched (`vmap_groups=True`),
+     which must agree bit for bit (summary, merged latencies, every group's
+     commit trace), the batched run at G 16 also on the CPU; each run with
+     the DOM launch counts reset just before and read just after (batched:
+     one launch of each kernel per lockstep epoch with work plus one per
+     retry generation; sequential: one per body dispatch), its walls split
+     into submitting, 2 warm epochs and the timed rest; and the two sharded
+     scenarios on the card and the CPU, bit for bit, with no skipped fault,
+     only group 1 view-changing in `sharded-group-crash` and the
+     cross-group checker silent on `sharded-multi-key`'s card trace.
 The last lines are the kernels' JSON record (the DOM records also carry
-phase 10's launches by route), the nvidia-smi line and
-{"ok": true, "device": {...}}. The script imports nothing of JAX or `repro`.
+phase 10's launches by route and phase 11's batched rows and launches),
+the nvidia-smi line and {"ok": true, "device": {...}}. The script imports
+nothing of JAX or `repro`.
 
 ``python3 chip_smoke.py --profile`` instead runs phases 1-2, then the
 card half of phase 4 twice -- once to warm, once under `torch.profiler`
@@ -1116,7 +1136,8 @@ def first_difference(a, b, where: str = ""):
 @contextlib.contextmanager
 def dispatch_probe():
     """Record (lanes, padded lanes) of every epoch-body dispatch, that is of
-    every epoch with requests, whether single or inside a K-epoch window."""
+    every epoch with requests, whether single or inside a K-epoch window
+    (a batched dispatch of G groups: its most lanes)."""
     from repro_torch.core.engine import DomEngine
 
     lanes = []
@@ -1126,7 +1147,9 @@ def dispatch_probe():
         body = make_body(self, use_kcls, use_cap)
 
         def run(*args, **kw):
-            lanes.append((int(args[11]), int(args[3].shape[0])))
+            # args[11]: the valid lanes of each group; args[3]: t [G, n_pad]
+            lanes.append((max(int(n) for n in args[11]),
+                          int(args[3].shape[-1])))
             return body(*args, **kw)
         return run
 
@@ -1306,6 +1329,374 @@ def drive_scenarios() -> dict:
     print(f"  at 1e6 req/s: DOM launches by route "
           f"{json.dumps(totals['at_1e6'])}")
     return {"totals": totals, "walls": walls, "catalog_s": catalog_s}
+
+
+# Phase 11: nezha-sharded (`repro_torch.core.sharded`). The DOM kernels'
+# batched form at (G, padded lanes, requests a group): the deployment's
+# per-group epochs at G 4, 16 and 64 on the small route, and two groups of
+# G 1's epoch on the onesweep route.
+SHARDED_SHAPES = ((4, 16_384, 15_625), (16, 4_096, 3_907), (64, 1_024, 977),
+                  (2, 65_536, 62_500))
+# benchmarks/dom_scale.py::_bench_sharded at N 1e6: single-key writes, keys
+# uniform over 2^20, submit times uniform over 16 epochs of 10 ms, 64
+# clients, 3 replicas a group, seed 0; 2 epochs warm, the rest timed
+SHARDED_N = 1_000_000
+SHARDED_EPOCHS = 16
+SHARDED_WARM_EPOCHS = 2
+SHARDED_GROUPS = (1, 4, 16, 64)
+SHARDED_SCENARIOS = ("sharded-multi-key", "sharded-group-crash")
+
+
+def group_batch(G: int, n_pad: int, n_valid: int, seed: int):
+    """G realistic DOM batches of n_valid requests, +inf padding lanes to
+    n_pad, as the sharded epoch stacks them."""
+    import numpy as np
+
+    d = np.full((G, n_pad), np.inf)
+    a = np.full((G, n_pad, 3), np.inf)
+    for g in range(G):
+        d[g, :n_valid], a[g, :n_valid] = realistic_batch(n_valid, 3,
+                                                         seed + g)
+    return d, a
+
+
+def check_batched(dev, G: int, n_pad: int, n_valid: int) -> dict:
+    """Both DOM kernels batched over G groups (one launch for all G) ==
+    their plain versions on the same [G, ...] tensors, exactly, and == G
+    separate launches of the G 1 form; timed per call (eager, and from a
+    CUDA graph) beside the G separate launches, the plain version, the
+    byte bound and (dom_release) one stable `torch.sort` of the [G, n]
+    keys along its rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.dom_admit import (admit_route, dom_admit,
+                                               dom_admit_plain)
+    from repro_torch.kernels.dom_release import (dom_release,
+                                                 dom_release_plain,
+                                                 release_route,
+                                                 small_route_blocks)
+    from repro_torch.kernels.timekeys import time_sort_keys
+
+    d_np, a_np = group_batch(G, n_pad, n_valid, seed=G)
+    d = torch.as_tensor(d_np, device=dev)
+    a = torch.as_tensor(a_np, device=dev)
+    R = a.shape[2]
+    ones = torch.ones((G, n_pad), dtype=torch.bool, device=dev)
+    inf = float("inf")
+    adm_k = dom_admit(d, a)
+    adm_p = dom_admit_plain(d, a)
+    torch.cuda.synchronize()
+    admit_err = int((adm_k.to(torch.int32) - adm_p.to(torch.int32))
+                    .abs().max())
+    if not torch.equal(adm_k, adm_p):
+        raise RuntimeError(f"batched dom_admit disagrees with its plain "
+                           f"version at G {G} x {n_pad}")
+    release_err = 0
+    now = float(np.median(d_np[0, :n_valid]))
+    for adm, clock in ((ones, inf), (adm_k[..., 0], now)):
+        o_k, c_k = dom_release(d, adm, clock)
+        o_p, c_p = dom_release_plain(d, adm, clock)
+        torch.cuda.synchronize()
+        release_err = max(release_err, int((o_k.to(torch.int64)
+                                            - o_p.to(torch.int64))
+                                           .abs().max()))
+        if not (torch.equal(o_k, o_p) and torch.equal(c_k, c_p)):
+            raise RuntimeError(f"batched dom_release disagrees with its "
+                               f"plain version at G {G} x {n_pad}")
+
+    def admit_each():
+        return [dom_admit(d[g], a[g]) for g in range(G)]
+
+    def release_each():
+        return [dom_release(d[g], ones[g], inf) for g in range(G)]
+
+    order = dom_release(d, ones, inf)[0]
+    for g, (x, (y, _)) in enumerate(zip(admit_each(), release_each())):
+        if not (torch.equal(x, adm_k[g]) and torch.equal(y, order[g])):
+            raise RuntimeError(f"group {g}'s own launch disagrees with the "
+                               f"batched one at G {G} x {n_pad}")
+    keys = time_sort_keys(d)
+    out = {"G": G, "n": n_pad, "requests": n_valid, "R": R,
+           "cluster_blocks": (small_route_blocks(n_pad)
+                              if release_route(n_pad) == "small" else None)}
+    out["dom_admit"] = {
+        "route": admit_route(n_pad), "max_abs_err": admit_err,
+        "ms": time_ms(lambda: dom_admit(d, a)),
+        "graph_ms": time_graph_ms(lambda: dom_admit(d, a)),
+        "separate_ms": time_ms(admit_each),
+        "separate_graph_ms": time_graph_ms(admit_each),
+        "plain_ms": time_ms(lambda: dom_admit_plain(d, a)),
+        "bound_ms": G * (8 * n_pad + 8 * R * n_pad + R * n_pad)
+        / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None}
+    call = lambda: dom_release(d, ones, inf)              # noqa: E731
+    lib = lambda: torch.sort(keys, dim=1, stable=True)    # noqa: E731
+    out["dom_release"] = {
+        "route": release_route(n_pad), "max_abs_err": release_err,
+        "ms": time_ms(call), "graph_ms": time_graph_ms(call),
+        "separate_ms": time_ms(release_each),
+        "separate_graph_ms": time_graph_ms(release_each),
+        "plain_ms": time_ms(lambda: dom_release_plain(d, ones, inf)),
+        "bound_ms": G * (9 * n_pad + 4 * n_pad) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": time_ms(lib), "library_graph_ms": time_graph_ms(lib)}
+    for name in ("dom_admit", "dom_release"):
+        r = out[name]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+    return out
+
+
+def batched_line(r: dict, name: str) -> str:
+    def f(x):
+        return "-" if x is None else f"{x:.4f}"
+    k = r[name]
+    blocks = ("" if r["cluster_blocks"] is None
+              else f" ({r['cluster_blocks']}-block clusters)")
+    line = (f"  {name:<11s} G {r['G']:<3d} x {r['n']:<6d} ({r['requests']} "
+            f"requests a group) route {k['route']}{blocks}, one launch "
+            f"{k['ms']:.4f} ms (graph {f(k['graph_ms'])}), {r['G']} "
+            f"separate launches {k['separate_ms']:.4f} (graph "
+            f"{f(k['separate_graph_ms'])}), plain {k['plain_ms']:.4f}, "
+            f"bound {k['bound_ms']:.6f} (bytes), share of bound "
+            f"{k['bound_share']:.4f}")
+    if k["library_ms"] is not None:
+        line += (f", stable torch.sort of the rows {k['library_ms']:.4f} "
+                 f"(graph {f(k['library_graph_ms'])})")
+    return line
+
+
+def sharded_workload():
+    """The deployment's requests, made as `_bench_sharded` makes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    duration = SHARDED_EPOCHS * 10e-3
+    t = np.sort(rng.uniform(0.0, duration, SHARDED_N)).tolist()
+    cid = rng.integers(0, 64, SHARDED_N).tolist()
+    keys = rng.integers(0, 1 << 20, SHARDED_N, dtype=np.uint64).tolist()
+    return t, cid, keys
+
+
+def run_deployment(name: str, G: int, device: str, batched: bool,
+                   work) -> dict:
+    """One run of the deployment: submit every request, run 2 epochs warm
+    and the rest timed, with the DOM launch counts reset just before the
+    run and read just after, every body dispatch probed, and (batched) the
+    per-group retry generations counted."""
+    import torch
+
+    from repro_torch.core import ShardedConfig, make_cluster
+    from repro_torch.core.messages import OpType
+
+    epoch = 10e-3
+    duration = SHARDED_EPOCHS * epoch
+    cfg = ShardedConfig(groups=G, n_clients=64, seed=0, device=device,
+                        vmap_groups=batched)
+    cl = make_cluster(name, cfg)
+    t0 = time.perf_counter()
+    for ti, ci, ki in zip(*work):
+        cl.submit_at(ti, ci, keys=(ki,), op=OpType.WRITE)
+    submit_s = time.perf_counter() - t0
+    gens = [0]
+    for grp in getattr(cl, "groups", ()):
+        run_epoch = grp.engine.run_epoch
+
+        def counted(*args, _run=run_epoch, **kw):
+            gens[0] += 1
+            return _run(*args, **kw)
+        grp.engine.run_epoch = counted
+    reset_dom_counts()
+    with dispatch_probe() as lanes:
+        t1 = time.perf_counter()
+        cl.run_for(SHARDED_WARM_EPOCHS * epoch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cl.run_for(duration - SHARDED_WARM_EPOCHS * epoch + 0.05)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    return {"cluster": cl, "summary": cl.summary(), "submit_s": submit_s,
+            "warm_s": t2 - t1, "timed_s": t3 - t2, "counts": dom_counts(),
+            "dispatches": len(lanes), "gens": gens[0],
+            "max_lanes": max((n for n, _ in lanes), default=0),
+            "max_padded": max((p for _, p in lanes), default=0)}
+
+
+def sharded_state(cl) -> dict:
+    """Everything a sharded run leaves to compare: the merged latencies and
+    every group's commit trace (`ShardedTrace`, part by part)."""
+    from repro_torch.sim.trace import CommitTrace
+
+    tr = CommitTrace.from_cluster(cl)
+    lat, n_fast = cl._merged_latencies()
+    return {"latencies": lat, "n_fast": n_fast, "multiops": tr.multiops,
+            "groups": [{p: getattr(g, p) for p in TRACE_PARTS}
+                       for g in tr.groups]}
+
+
+def deployment_line(r: dict, label: str) -> str:
+    s = r["summary"]
+    return (f"  {label}: {s['n_requests']} requests, {s['committed']} "
+            f"committed, fast ratio {s['fast_commit_ratio']:.4f}, median "
+            f"{s['median_latency'] * 1e6:.1f} us, {r['dispatches']} body "
+            f"dispatches (most lanes {r['max_lanes']}, bucket "
+            f"{r['max_padded']}), {s.get('vmap_epochs', 0)} batched epochs "
+            f"+ {r['gens'] if s.get('vmap_epochs') else 0} retry "
+            f"generations, dom_admit {json.dumps(r['counts']['dom_admit'])} "
+            f"dom_release {json.dumps(r['counts']['dom_release'])}; wall: "
+            f"submit {r['submit_s']:.3f} s, warm {r['warm_s']:.3f} s, timed "
+            f"{r['timed_s']:.3f} s ({s['committed'] / r['timed_s']:.0f} "
+            f"committed/s over the timed wall)")
+
+
+def check_launches(r: dict, label: str, batched: bool) -> None:
+    """Each DOM kernel launched on the run, once a body dispatch: batched,
+    once a lockstep epoch with work plus once a retry generation."""
+    want = r["dispatches"]
+    if batched:
+        want = r["summary"]["vmap_epochs"] + r["gens"]
+        if r["summary"]["vmap_epochs"] <= 0 or want != r["dispatches"]:
+            raise RuntimeError(f"{label}: {r['summary']['vmap_epochs']} "
+                               f"batched epochs, {r['gens']} retry "
+                               f"generations, {r['dispatches']} dispatches")
+    for name, by_route in r["counts"].items():
+        got = sum(by_route.values())
+        if got <= 0 or got != want:
+            raise RuntimeError(f"{label}: {name} launched "
+                               f"{json.dumps(by_route)}, want {want}")
+
+
+def drive_sharded(dev) -> dict:
+    """Phase 11: the batched DOM kernels against their plain versions, the
+    deployment of `_bench_sharded` at G 1, 4, 16 and 64 (sequential ==
+    batched, G 1 == nezha-vectorized, card == CPU at G 16), and the two
+    sharded scenarios, card == CPU."""
+    import numpy as np
+
+    from repro_torch.sim.scenario import SCENARIO_RESULT_KEYS
+    from repro_torch.sim.trace import (check_cross_group_linearizability,
+                                       run_scenario_with_trace)
+
+    print("nezha-sharded: the DOM kernels batched over G groups, one launch "
+          "for all G (== plain and == G separate launches, bit for bit):")
+    batched = [check_batched(dev, G, n, req) for G, n, req in SHARDED_SHAPES]
+    for name in ("dom_admit", "dom_release"):
+        for r in batched:
+            print(batched_line(r, name))
+
+    print(f"nezha-sharded deployment (benchmarks/dom_scale.py "
+          f"_bench_sharded): {SHARDED_N} single-key writes over 2^20 keys in "
+          f"{SHARDED_EPOCHS} epochs of 10 ms, 64 clients, 3 replicas a "
+          f"group, seed 0:")
+    work = sharded_workload()
+    runs = {}
+    base = run_deployment("nezha-vectorized", 1, "cuda", False, work)
+    one = run_deployment("nezha-sharded", 1, "cuda", False, work)
+    print(deployment_line(base, "nezha-vectorized G 1"))
+    print(deployment_line(one, "nezha-sharded G 1   "))
+    sa, sb = base["summary"], one["summary"]
+    diff = [k for k in sa if k not in ("protocol", "backend")
+            and first_difference(sa[k], sb.get(k)) is not None]
+    grp, vec = one["cluster"].groups[0], base["cluster"]
+    same = not diff and all(
+        first_difference(x, y) is None for x, y in (
+            (np.concatenate(grp._latencies), np.concatenate(vec._latencies)),
+            ([list(r) for r in grp._trace_commits],
+             [list(r) for r in vec._trace_commits]),
+            (grp.engine.logs.log_columns(), vec.engine.logs.log_columns())))
+    if not same:
+        raise RuntimeError(f"nezha-sharded G 1 differs from nezha-vectorized"
+                           f": {diff or 'latencies, commits or log'}")
+    check_launches(one, "G 1", False)
+    runs[1] = {"sequential": one}
+    print("  G 1: nezha-sharded == nezha-vectorized, bit for bit (summary, "
+          "latencies, commit trace, replica log)")
+    del base
+    for G in SHARDED_GROUPS[1:]:
+        seq = run_deployment("nezha-sharded", G, "cuda", False, work)
+        bat = run_deployment("nezha-sharded", G, "cuda", True, work)
+        print(deployment_line(seq, f"G {G:<2d} sequential"))
+        print(deployment_line(bat, f"G {G:<2d} batched   "))
+        check_launches(seq, f"G {G} sequential", False)
+        check_launches(bat, f"G {G} batched", True)
+        want = sharded_state(bat["cluster"])
+        pairs = [("sequential", seq)]
+        if G == 16:
+            cpu = run_deployment("nezha-sharded", G, "cpu", True, work)
+            print(deployment_line(cpu, f"G {G:<2d} batched on the CPU"))
+            if any(sum(c.values()) for c in cpu["counts"].values()):
+                raise RuntimeError("the CPU run launched a kernel")
+            pairs.append(("the CPU", cpu))
+        for label, other in pairs:
+            keep = ("vmap_epochs", "tier")
+            d = first_difference(
+                {k: v for k, v in bat["summary"].items() if k not in keep},
+                {k: v for k, v in other["summary"].items() if k not in keep},
+                "summary")
+            d = d or first_difference(want, sharded_state(other["cluster"]))
+            if d is not None:
+                raise RuntimeError(f"G {G}: batched on the card differs from "
+                                   f"{label} at {d}")
+        print(f"  G {G}: batched == " + " == ".join(p for p, _ in pairs)
+              + ", bit for bit (summary, merged latencies, every group's "
+              "commit trace)")
+        runs[G] = {"sequential": seq, "batched": bat}
+        for r in (seq, bat):
+            r.pop("cluster")
+        if G == 16:
+            cpu.pop("cluster")
+            runs[G]["cpu"] = cpu
+    one.pop("cluster")
+
+    print("the two sharded scenarios, card == CPU (bit for bit):")
+    scenarios = {}
+    for name in SHARDED_SCENARIOS:
+        out = {}
+        for device in ("cuda", "cpu"):
+            reset_dom_counts()
+            t0 = time.perf_counter()
+            res, tr = run_scenario_with_trace("nezha-sharded", name,
+                                              device=device)
+            out[device] = (res, tr, time.perf_counter() - t0, dom_counts())
+        (rg, tg, wg, cg), (rc, tc, wc, _) = out["cuda"], out["cpu"]
+        pairs = [(k, getattr(rg, k), getattr(rc, k))
+                 for k in SCENARIO_RESULT_KEYS if k != "tier"]
+        pairs.append(("raw", {k: v for k, v in rg.raw.items() if k != "tier"},
+                      {k: v for k, v in rc.raw.items() if k != "tier"}))
+        pairs += [(f"group {g} {p}", getattr(a, p), getattr(b, p))
+                  for g, (a, b) in enumerate(zip(tg.groups, tc.groups))
+                  for p in TRACE_PARTS]
+        pairs += [("multiops", tg.multiops, tc.multiops),
+                  ("findings", findings(tg), findings(tc))]
+        for key, x, y in pairs:
+            d = first_difference(x, y, key)
+            if d is not None:
+                raise RuntimeError(f"{name}: the card and the CPU differ at "
+                                   f"{d}")
+        vc = rg.raw["per_group_view_changes"]
+        xg = check_cross_group_linearizability(tg)
+        print(f"  {name}: {rg.n_requests} requests, {rg.committed} "
+              f"committed, fast ratio {rg.fast_commit_ratio:.4f}, "
+              f"cross-group ops {rg.raw['cross_group_ops']}, per-group view "
+              f"changes {vc}, skipped faults {rg.skipped_faults}, "
+              f"cross-group findings {len(xg)}, dom_admit "
+              f"{json.dumps(cg['dom_admit'])} dom_release "
+              f"{json.dumps(cg['dom_release'])}, wall card {wg:.3f} s, CPU "
+              f"{wc:.3f} s")
+        if rg.skipped_faults != 0 or rg.tier != "torch-cuda":
+            raise RuntimeError(f"{name}: skipped {rg.skipped_faults} "
+                               f"faults on {rg.tier}")
+        if name == "sharded-group-crash" and vc != [0, 1, 0, 0]:
+            raise RuntimeError(f"{name}: per-group view changes {vc}")
+        if name == "sharded-multi-key" and (xg or not tg.multiops):
+            raise RuntimeError(f"{name}: the cross-group checker found "
+                               f"{xg[:3]} in {len(tg.multiops)} multi-ops")
+        if any(sum(c.values()) <= 0 for c in cg.values()):
+            raise RuntimeError(f"{name}: a DOM kernel never launched")
+        scenarios[name] = {"card_s": wg, "cpu_s": wc,
+                           "launches_by_route": cg}
+    return {"batched": batched, "runs": runs, "scenarios": scenarios}
 
 
 def main() -> int:
@@ -1652,6 +2043,9 @@ def main() -> int:
     # -- 10. the scenario catalog on the card ---------------------------------
     scen = drive_scenarios()
 
+    # -- 11. nezha-sharded: batched DOM kernels, the deployment, scenarios --
+    shard = drive_sharded(dev)
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -1688,6 +2082,16 @@ def main() -> int:
         entry["scenario_launches_by_route"] = {
             where: by_kernel[name]
             for where, by_kernel in scen["totals"].items()}
+        entry["sharded"] = {
+            "batched": [{"G": r["G"], "n": r["n"], "requests": r["requests"],
+                         **r[name]} for r in shard["batched"]],
+            "deployment_launches_by_route": {
+                f"G {G} {mode}": run["counts"][name]
+                for G, modes in shard["runs"].items()
+                for mode, run in modes.items()},
+            "scenario_launches_by_route": {
+                sc: v["launches_by_route"][name]
+                for sc, v in shard["scenarios"].items()}}
         record["kernels"].append(entry)
     r = fa_main["bfloat16"]
     record["kernels"].append({

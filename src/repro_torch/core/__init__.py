@@ -1,4 +1,5 @@
-"""Port of `repro/core`: the vectorized Nezha data plane on torch."""
+"""Port of `repro/core`: the vectorized Nezha data plane on torch, and the
+sharded backend of G such groups over one key space."""
 from repro_torch.core.cluster import (
     SUMMARY_REQUIRED_KEYS,
     Cluster,
@@ -11,6 +12,7 @@ from repro_torch.core.registry import (
     config_class,
     make_cluster,
 )
+from repro_torch.core.sharded import ShardedConfig, ShardedNezhaCluster
 from repro_torch.core.vectorized_cluster import (
     VectorizedConfig,
     VectorizedNezhaCluster,
@@ -21,4 +23,5 @@ __all__ = ["SUMMARY_REQUIRED_KEYS", "Cluster", "CommonConfig",
            "summarize_commits", "available_clusters", "config_class",
            "make_cluster",
            "VectorizedConfig", "VectorizedNezhaCluster",
+           "ShardedConfig", "ShardedNezhaCluster",
            "config_from_reference", "IncrementalHash", "PerKeyHashTable"]

@@ -26,6 +26,13 @@ ONE transfer at the end of the window. Host-side sampling, delivery and
 log bookkeeping still run per epoch in order, so a window equals the same
 epochs run one at a time, bit for bit.
 
+**Groups**: the body takes every per-epoch operand with a leading axis of
+G consensus groups (the reference `jax.vmap`s its body over that axis).
+A single engine runs it at G = 1; the sharded backend
+(`repro_torch.core.sharded`) runs the epochs of all its groups as one
+call, one launch of each DOM kernel for all G. Rows of different groups
+never mix, so each group's outputs equal its G = 1 run bit for bit.
+
 Batches are padded to power-of-two buckets (pad lanes carry +inf times and
 are invisible to real rows); a window shares one bucket across its epochs.
 Tensors move host -> device once per epoch (or window) and back once.
@@ -119,6 +126,13 @@ class PendingBuffer:
             return False
         return bool((self._buf["dl"][: self._n] > 0).any())
 
+    def uids(self) -> np.ndarray:
+        """Packed uids of every pending attempt (sharded abandonment
+        accounting: a request neither committed nor pending anywhere was
+        given up on)."""
+        view = self._buf[: self._n]
+        return pack_uids(view["cid"], view["rid"])
+
     def pop_due(self, horizon: float) -> np.ndarray:
         """Remove and return all entries with t <= horizon, time-sorted."""
         view = self._buf[: self._n]
@@ -177,11 +191,14 @@ _INF = float("inf")
 
 
 def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
-    """The torch epoch body behind the single-epoch step and the K window.
+    """The torch epoch body behind the single-epoch step, the K window and
+    the sharded backend's batched epoch.
 
     A mirror of the reference's StampStage + DomStage + `classify_commits`,
-    run in float64 on the operands' device. The two host-owned per-epoch
-    scalars are computed in the body from carried state:
+    run in float64 on the operands' device over a leading axis of G groups
+    (the reference `jax.vmap`s its body over the same axis). The two
+    host-owned per-epoch scalars are computed in the body, per group, from
+    carried state:
 
       bound  -- this epoch's observed OWDs fold into a fixed-size ring
                 pool (the device twin of `DomEngine.owd_pool`), then the
@@ -190,47 +207,51 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
       fetch  -- the mean-reply estimate via the fold-halves sum,
                 bit-identical to `_fetch_estimate`.
 
-    Signature: body(pool, ptr, cnt, <epoch operands>) -> ((pool, ptr, cnt),
-    [stamp, deadlines, arrivals, admitted, release, commit_t, fast,
-    committed, order (+ sync est, sigma)], bound). ``order`` is the stable
-    deadline order from the `dom_release` kernel: the log's execution order.
-    ``ptr`` and ``cnt`` are 0-d int64 device tensors, so nothing here waits
-    for the device.
+    Signature: body(pool [G, W], ptr [G], cnt [G], <epoch operands [G, N]
+    and [G, N, R], alive [G, R]>, leader [G], n_valid [G], <config scalars
+    shared by every group>, floor [G], <fault operands with a leading G>)
+    -> ((pool, ptr, cnt), [stamp, deadlines, arrivals, admitted, release,
+    commit_t, fast, committed, order (+ sync est, sigma)], bound [G]).
+    ``leader``, ``n_valid`` and ``floor`` are host arrays, uploaded here;
+    ``ptr`` and ``cnt`` are int64 device tensors, so nothing here waits for
+    the device. ``order`` is the stable deadline order from the
+    `dom_release` kernel: the log's execution order. The modeled sync
+    round's [M, M] operands have no group axis (a single engine only).
     """
     fq = fast_quorum_size(f)
     sq = slow_quorum_size(f)
 
     def pool_fold(pool, ptr, cnt, obs, n_valid):
-        # Ring-buffer fold of this epoch's observed OWD samples, row-major
-        # over the valid rows -- the device twin of update_bound's
+        # Ring-buffer fold of each group's observed OWD samples, row-major
+        # over its valid rows -- the device twin of update_bound's
         # `concat(pool, obs)[-W:]`: when more than W samples would land,
         # the oldest overflow is skipped before writing. Write targets are
         # distinct; masked lanes land in the extra slot W, which is cut off.
-        W = pool.shape[0]
-        n_pad, R = obs.shape
+        G, W = pool.shape
+        n_pad, R = obs.shape[1:]
         m = n_valid * R
-        m_kept = min(m, W)
-        skip = m - m_kept
-        k = torch.arange(n_pad * R, device=pool.device)
-        write = (k >= skip) & (k < m)
-        tgt = torch.where(write, (ptr + k - skip) % W, W)
-        buf = torch.cat([pool, pool.new_zeros(1)])
-        buf.scatter_(0, tgt, obs.reshape(-1))
-        return buf[:W], (ptr + m_kept) % W, torch.clamp_max(cnt + m, W)
+        m_kept = torch.clamp_max(m, W)
+        skip = (m - m_kept)[:, None]
+        k = torch.arange(n_pad * R, device=pool.device)[None, :]
+        write = (k >= skip) & (k < m[:, None])
+        tgt = torch.where(write, (ptr[:, None] + k - skip) % W, W)
+        buf = torch.cat([pool, pool.new_zeros(G, 1)], dim=1)
+        buf.scatter_(1, tgt, obs.reshape(G, -1))
+        return buf[:, :W], (ptr + m_kept) % W, torch.clamp_max(cnt + m, W)
 
     def pool_percentile(pool, cnt, pq01, margin, clamp_d):
         # Mirror of update_bound: sort-select the two order statistics (+inf
         # fills the unfilled tail) and interpolate exactly like
         # `_partition_percentile` (numpy's _lerp branch structure, separate
         # multiply and add). pq01 is percentile/100 divided on the host.
-        W = pool.shape[0]
-        srt = torch.sort(pool).values
+        W = pool.shape[1]
+        srt = torch.sort(pool, dim=1).values
         pos = pq01 * (cnt - 1).to(_F64)
         fl = torch.floor(pos)
-        lo = torch.clamp(fl.to(torch.int64), 0, W - 1).reshape(1)
-        hi = torch.clamp(torch.ceil(pos).to(torch.int64), 0, W - 1).reshape(1)
-        lo_v = srt.index_select(0, lo).reshape(())
-        hi_v = srt.index_select(0, hi).reshape(())
+        lo = torch.clamp(fl.to(torch.int64), 0, W - 1)[:, None]
+        hi = torch.clamp(torch.ceil(pos).to(torch.int64), 0, W - 1)[:, None]
+        lo_v = srt.gather(1, lo)[:, 0]
+        hi_v = srt.gather(1, hi)[:, 0]
         t = pos - fl
         r = torch.where(t < 0.5, lo_v + t * (hi_v - lo_v),
                         hi_v - (hi_v - lo_v) * (1.0 - t))
@@ -240,19 +261,20 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
         return torch.where(cnt > 0, bound, clamp_d)
 
     def tree_mean_fetch(reply):
-        # `_fetch_estimate`: the fold-halves tree sum is pow2-padding
-        # invariant, so the padded batch reduces to the exact host value
-        # (pad lanes are +inf -> masked to 0.0).
+        # `_fetch_estimate` per group: the fold-halves tree sum is
+        # pow2-padding invariant, so each group's padded rows reduce to its
+        # exact host value (pad lanes are +inf -> masked to 0.0).
+        G = reply.shape[0]
         fin = torch.isfinite(reply)
-        cnt = fin.sum()
-        x = torch.where(fin, reply, 0.0).reshape(-1)
-        p = _pow2_bucket(x.shape[0])
-        if p != x.shape[0]:
-            x = torch.cat([x, x.new_zeros(p - x.shape[0])])
-        while x.shape[0] > 1:
-            h = x.shape[0] // 2
-            x = x[:h] + x[h:]
-        return torch.where(cnt > 0, 3.0 * (x[0] / torch.clamp_min(cnt, 1)),
+        cnt = fin.reshape(G, -1).sum(dim=1)
+        x = torch.where(fin, reply, 0.0).reshape(G, -1)
+        p = _pow2_bucket(x.shape[1])
+        if p != x.shape[1]:
+            x = torch.cat([x, x.new_zeros(G, p - x.shape[1])], dim=1)
+        while x.shape[1] > 1:
+            h = x.shape[1] // 2
+            x = x[:, :h] + x[:, h:]
+        return torch.where(cnt > 0, 3.0 * (x[:, 0] / torch.clamp_min(cnt, 1)),
                            _INF)
 
     def body(pool, ptr, cnt, t, c2p, owd_pr, drop_pr, reply_owd, alive,
@@ -261,8 +283,16 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
              pair_drop=None, pair_delay=None, pre_dl=None,
              sync_theta=None, sync_rtt=None, sync_safety=None,
              sync_floor=None):
-        N, R = owd_pr.shape
+        G, N, R = owd_pr.shape
         dev = owd_pr.device
+        leader = torch.as_tensor(np.asarray(leader, np.int64), device=dev)
+        n_valid = torch.as_tensor(np.asarray(n_valid, np.int64), device=dev)
+        floor = torch.as_tensor(np.asarray(floor, np.float64), device=dev)
+        lead_at = leader[:, None, None].expand(G, N, 1)
+
+        def at_leader(x):       # [G, N, R] -> [G, N]: the leader's column
+            return x.gather(2, lead_at)[..., 0]
+
         # Per-pair network faults (Partition / GrayLink): extra delay joins
         # the effective OWD before anything observes it, per-pair drops
         # extend the fabric's own drop mask.
@@ -272,96 +302,99 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
         # Fold BEFORE selecting: this epoch's samples are part of its bound.
         obs = owd_eff
         if stamp_off is not None:
-            obs = owd_eff + arr_off - stamp_off[:, None]
+            obs = owd_eff + arr_off - stamp_off[..., None]
         pool, ptr, cnt = pool_fold(pool, ptr, cnt, obs, n_valid)
         bound = pool_percentile(pool, cnt, pq01, margin, clamp_d)
         # --- fetch: mean-reply estimate -------------------------------------
-        reply = torch.where(alive[None, :], reply_owd, _INF)
+        reply = torch.where(alive[:, None, :], reply_owd, _INF)
         fetch = tree_mean_fetch(reply)
         # --- stamp: proxy stamping + deadline bounding ---------------------
         # stamp_off: proxy clock-read error folded into the deadline value;
         # arr_off: replica clock-read error shifting each receiver's local
         # frame. Clock-fault-free epochs carry neither.
         stamp = t + c2p
-        deadlines = stamp + bound
+        deadlines = stamp + bound[:, None]
         if stamp_off is not None:
             deadlines = deadlines + stamp_off
         if pre_dl is not None:
             # pre-stamped global deadlines (dl > 0) override LAST
             deadlines = torch.where(pre_dl > 0, pre_dl, deadlines)
-        arrivals = torch.where(drop_eff | ~alive[None, :], _INF,
-                               stamp[:, None] + owd_eff)
+        arrivals = torch.where(drop_eff | ~alive[:, None, :], _INF,
+                               stamp[..., None] + owd_eff)
         # recovery stall: nothing releases before `floor` (StartView); a
         # zero floor is the identity on the positive arrival times
-        arrivals = torch.clamp_min(arrivals, floor)
+        arrivals = torch.maximum(arrivals, floor[:, None, None])
         if dies_at is not None:
             # in-flight messages to a replica dying at the epoch's end are
             # never received
-            arrivals = torch.where(arrivals > dies_at[None, :], _INF,
+            arrivals = torch.where(arrivals > dies_at[:, None, :], _INF,
                                    arrivals)
         # --- dom: watermark admission + release (receiver-local frames) ----
         a_loc = arrivals if arr_off is None else arrivals + arr_off
         admitted = dom_admit_device(deadlines, a_loc)
         release = torch.where(admitted,
-                              torch.maximum(deadlines[:, None], a_loc), _INF)
+                              torch.maximum(deadlines[..., None], a_loc), _INF)
         if arr_off is not None:
             release = release - arr_off
         # --- deadline cap (SD.2.4): the leader releases far-future
         # deadlines at arrival; those requests are barred from the fast path
-        lead_col = (torch.arange(R, device=dev) == leader)[None, :]
+        lead_col = (torch.arange(R, device=dev) == leader[:, None])[:, None, :]
         if use_cap:
-            capped = torch.isfinite(a_loc[:, leader]) \
-                & (deadlines > a_loc[:, leader] + cap)
-            admitted = admitted | (lead_col & capped[:, None])
-            release = torch.where(lead_col & capped[:, None], arrivals,
+            a_lead = at_leader(a_loc)
+            capped = torch.isfinite(a_lead) & (deadlines > a_lead + cap)
+            admitted = admitted | (lead_col & capped[..., None])
+            release = torch.where(lead_col & capped[..., None], arrivals,
                                   release)
         # --- commit: prefix hash-consistency vs the leader ------------------
         order = dom_deadline_order_device(deadlines)
         korder = order
         if use_kcls:
-            # regroup by key class (stable): (class, deadline) order; this
-            # sort is outside the DOM kernels
-            korder = order[torch.sort(kcls[order], stable=True).indices]
-        adm_sorted = admitted[korder]
-        lead_adm_sorted = adm_sorted[:, leader]
-        disagree = (adm_sorted != lead_adm_sorted[:, None]).to(torch.int64)
-        cum_disagree = torch.cumsum(disagree, dim=0) - disagree
+            # regroup each group's rows by key class (stable): (class,
+            # deadline) order; this sort is outside the DOM kernels
+            korder = order.gather(1, torch.sort(kcls.gather(1, order), dim=1,
+                                                stable=True).indices)
+        adm_sorted = admitted.gather(1, korder[..., None].expand(G, N, R))
+        lead_adm_sorted = at_leader(adm_sorted)
+        disagree = (adm_sorted != lead_adm_sorted[..., None]).to(torch.int64)
+        cum_disagree = torch.cumsum(disagree, dim=1) - disagree
         if use_kcls:
-            ks = kcls[korder]
-            is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                                  ks[1:] != ks[:-1]])
+            ks = kcls.gather(1, korder)
+            is_start = torch.cat(
+                [torch.ones((G, 1), dtype=torch.bool, device=dev),
+                 ks[:, 1:] != ks[:, :-1]], dim=1)
             start_pos = torch.cummax(
                 torch.where(is_start, torch.arange(N, device=dev), 0),
-                dim=0).values
-            cum_disagree = cum_disagree - cum_disagree[start_pos]
+                dim=1).values
+            cum_disagree = cum_disagree - cum_disagree.gather(
+                1, start_pos[..., None].expand(G, N, R))
         prefix_match = cum_disagree == 0
         inv = torch.empty_like(korder).scatter_(
-            0, korder, torch.arange(N, device=dev))
-        prefix_match = prefix_match[inv]
+            1, korder, torch.arange(N, device=dev).expand(G, N))
+        prefix_match = prefix_match.gather(1, inv[..., None].expand(G, N, R))
         # --- fast quorum ----------------------------------------------------
-        lead_admitted = admitted[:, leader]
+        lead_admitted = at_leader(admitted)
         fast_reply_t = torch.where(admitted, release + reply, _INF)
-        fast_hash_ok = admitted & prefix_match & lead_admitted[:, None]
+        fast_hash_ok = admitted & prefix_match & lead_admitted[..., None]
         ok_t = torch.where(fast_hash_ok, fast_reply_t, _INF)
-        ok_lead = ok_t[:, leader]
-        ok_kth = (torch.sort(ok_t, dim=1).values[:, fq - 1] if fq - 1 < R
-                  else torch.full((N,), _INF, dtype=_F64, device=dev))
+        ok_lead = at_leader(ok_t)
+        ok_kth = (torch.sort(ok_t, dim=-1).values[..., fq - 1] if fq - 1 < R
+                  else torch.full((G, N), _INF, dtype=_F64, device=dev))
         fast_commit_t = torch.where(torch.isfinite(ok_lead), ok_kth, _INF)
         fast_commit_t = torch.maximum(fast_commit_t, ok_lead)
         if use_cap:
             fast_commit_t = torch.where(capped, _INF, fast_commit_t)
         # --- slow path ------------------------------------------------------
-        arr_lead = arrivals[:, leader]
-        leader_t = torch.where(lead_admitted, release[:, leader], arr_lead)
+        arr_lead = at_leader(arrivals)
+        leader_t = torch.where(lead_admitted, at_leader(release), arr_lead)
         leader_t = torch.where(torch.isfinite(arr_lead), leader_t, _INF)
-        sync_t = leader_t[:, None] + batch_delay + reply
+        sync_t = leader_t[..., None] + batch_delay + reply
         have_t = torch.where(torch.isfinite(arrivals), arrivals,
-                             leader_t[:, None] + fetch)
+                             leader_t[..., None] + fetch[:, None, None])
         slow_reply_t = torch.maximum(sync_t, have_t) + reply
-        slow_reply_t = torch.where(lead_col, leader_t[:, None] + reply,
+        slow_reply_t = torch.where(lead_col, leader_t[..., None] + reply,
                                    slow_reply_t)
-        slow_kth = torch.sort(slow_reply_t, dim=1).values[:, sq - 1]
-        slow_commit_t = torch.maximum(slow_kth, leader_t + reply[:, leader])
+        slow_kth = torch.sort(slow_reply_t, dim=-1).values[..., sq - 1]
+        slow_commit_t = torch.maximum(slow_kth, leader_t + at_leader(reply))
         # --- verdicts -------------------------------------------------------
         commit_t = torch.minimum(fast_commit_t, slow_commit_t)
         fast = fast_commit_t <= slow_commit_t
@@ -637,10 +670,11 @@ class SampleStage(Stage):
 class FusedEpochStage(Stage):
     """Stamp -> dom -> commit as one torch program on the engine's device.
 
-    Builds the pow2-padded operands on the host, runs `DomEngine.step` (the
-    epoch body of `_build_epoch_body`), and takes the outputs back in one
-    transfer. The host advances its numpy pool mirror (`update_bound`) in
-    lockstep; its value is bit-identical to the body's fold by construction.
+    Builds the pow2-padded operands on the host (one group: a leading axis
+    of 1), runs `DomEngine.step` (the epoch body of `_build_epoch_body`),
+    and takes the outputs back in one transfer. The host advances its numpy
+    pool mirror (`update_bound`) in lockstep; its value is bit-identical to
+    the body's fold by construction.
     """
 
     name = "fused"
@@ -658,45 +692,45 @@ class FusedEpochStage(Stage):
         n_pad = _pow2_bucket(N)
         # Pad lanes: +inf attempt time -> +inf stamp/deadline/arrival, never
         # admitted, never committed -- invisible to the real rows.
-        t = np.full(n_pad, np.inf)
-        t[:N] = s.t
-        c2p = np.zeros(n_pad)
-        c2p[:N] = s.c2p
-        owd = np.zeros((n_pad, R))
-        owd[:N] = s.owd_pr
-        drop = np.ones((n_pad, R), dtype=bool)
-        drop[:N] = s.drop_pr
+        t = np.full((1, n_pad), np.inf)
+        t[0, :N] = s.t
+        c2p = np.zeros((1, n_pad))
+        c2p[0, :N] = s.c2p
+        owd = np.zeros((1, n_pad, R))
+        owd[0, :N] = s.owd_pr
+        drop = np.ones((1, n_pad, R), dtype=bool)
+        drop[0, :N] = s.drop_pr
         # +inf reply pads: row-local quorum arithmetic never sees them AND
         # the fetch mean excludes them
-        reply = np.full((n_pad, R), np.inf)
-        reply[:N] = s.reply_owd
-        kcls = np.full(n_pad, -1, np.int64)
+        reply = np.full((1, n_pad, R), np.inf)
+        reply[0, :N] = s.reply_owd
+        kcls = np.full((1, n_pad), -1, np.int64)
         if s.kcls is not None:
-            kcls[:N] = s.kcls
+            kcls[0, :N] = s.kcls
         # fault operands: only faulty epochs carry them; pad lanes stay
         # clean, their inf attempt times hide them regardless
         fault_kw = {}
         if s.dies_at is not None:
-            fault_kw["dies_at"] = np.asarray(s.dies_at, np.float64)
+            fault_kw["dies_at"] = np.asarray(s.dies_at, np.float64)[None]
         if s.clock_stamp_off is not None:
-            stamp_off = np.zeros(n_pad)
-            stamp_off[:N] = s.clock_stamp_off
-            arr_off = np.zeros((n_pad, R))
-            arr_off[:N] = s.clock_arr_off
+            stamp_off = np.zeros((1, n_pad))
+            stamp_off[0, :N] = s.clock_stamp_off
+            arr_off = np.zeros((1, n_pad, R))
+            arr_off[0, :N] = s.clock_arr_off
             fault_kw["stamp_off"] = stamp_off
             fault_kw["arr_off"] = arr_off
         if s.pair_drop is not None:
-            pair_drop = np.zeros((n_pad, R), dtype=bool)
-            pair_drop[:N] = s.pair_drop
-            pair_delay = np.zeros((n_pad, R))
-            pair_delay[:N] = s.pair_delay
+            pair_drop = np.zeros((1, n_pad, R), dtype=bool)
+            pair_drop[0, :N] = s.pair_drop
+            pair_delay = np.zeros((1, n_pad, R))
+            pair_delay[0, :N] = s.pair_delay
             fault_kw["pair_drop"] = pair_drop
             fault_kw["pair_delay"] = pair_delay
         if s.pre_deadline is not None:
             # pre-stamped multi-op deadlines: pad lanes carry the 0.0
             # sentinel (= stamp normally)
-            pre_dl = np.zeros(n_pad)
-            pre_dl[:N] = s.pre_deadline
+            pre_dl = np.zeros((1, n_pad))
+            pre_dl[0, :N] = s.pre_deadline
             fault_kw["pre_dl"] = pre_dl
         if s.sync_theta is not None:
             # a modeled sync round: [M, M] probe arrays, no padding
@@ -704,12 +738,14 @@ class FusedEpochStage(Stage):
             fault_kw["sync_rtt"] = s.sync_rtt
             fault_kw["sync_safety"] = float(cfg.clock.sigma_safety)
             fault_kw["sync_floor"] = float(cfg.clock.sigma_floor)
-        pulled = eng.step(pool, ptr, cnt, t, c2p, owd, drop, reply, s.alive,
-                          kcls, s.leader, N, use_kcls=s.kcls is not None,
-                          release_floor=s.release_floor, **fault_kw)
+        pulled = eng.step(pool[None], np.asarray(ptr)[None],
+                          np.asarray(cnt)[None], t, c2p, owd,
+                          drop, reply, np.asarray(s.alive, bool)[None], kcls,
+                          [s.leader], [N], use_kcls=s.kcls is not None,
+                          release_floor=[s.release_floor], **fault_kw)
         (s.stamp, s.deadlines, s.arrivals, s.admitted, s.release,
          s.commit_time, s.fast, s.committed, s.exec_order) = \
-            [o[:N] for o in pulled[:9]]
+            [o[0, :N] for o in pulled[:9]]
         if s.sync_theta is not None:
             # the round's estimator outputs fold at the epoch boundary
             s.sync_est, s.sync_sigma = pulled[9], pulled[10]
@@ -1334,33 +1370,35 @@ class DomEngine:
                                                   use_cap)
         return self._bodies[key]
 
-    def _scalars(self, release_floor: float) -> dict:
-        """The per-dispatch host scalars of the body (float64 values)."""
+    def _scalars(self) -> dict:
+        """The per-dispatch host scalars of the body (float64 values),
+        shared by every group of a batched call."""
         cfg = self.cfg
         return dict(pq01=float(cfg.dom.percentile) / 100.0,
                     margin=self.bound_margin(),
                     clamp_d=float(cfg.dom.clamp_d),
                     batch_delay=float(cfg.leader_batch_delay),
-                    cap=float(getattr(cfg, "deadline_cap", 0.0) or 0.0),
-                    floor=float(release_floor))
+                    cap=float(getattr(cfg, "deadline_cap", 0.0) or 0.0))
 
     def _upload(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
     def step(self, pool, ptr, cnt, t, c2p, owd, drop, reply, alive, kcls,
-             leader: int, n_valid: int, *, use_kcls: bool,
-             release_floor: float = 0.0, **fault_kw) -> list[np.ndarray]:
-        """One epoch through the body on the device: numpy operands up, the
-        outputs (see `_build_epoch_body`) back as numpy in one transfer."""
-        sc = self._scalars(release_floor)
+             leader, n_valid, *, use_kcls: bool, release_floor,
+             **fault_kw) -> list[np.ndarray]:
+        """One epoch of G groups through the body on the device: numpy
+        operands with a leading G axis up (``leader``, ``n_valid`` and
+        ``release_floor`` one value a group), the outputs (see
+        `_build_epoch_body`) back as numpy in one transfer."""
+        sc = self._scalars()
         body = self._body(use_kcls, sc["cap"] > 0.0)
         up = self._upload
         kw = {k: (up(v) if isinstance(v, np.ndarray) else v)
               for k, v in fault_kw.items()}
         _, outs, _ = body(up(pool), up(ptr), up(cnt), up(t), up(c2p),
                           up(owd), up(drop), up(reply),
-                          up(np.asarray(alive, bool)), up(kcls), int(leader),
-                          int(n_valid), **sc, **kw)
+                          up(np.asarray(alive, bool)), up(kcls), leader,
+                          n_valid, **sc, floor=release_floor, **kw)
         return _pull(outs)
 
     def run_window(self, dues, alive: np.ndarray, leader: int,
@@ -1431,21 +1469,24 @@ class DomEngine:
             reply[i, :N] = s.reply_owd
             if s.kcls is not None:
                 kcls[i, :N] = s.kcls
-        sc = self._scalars(release_floor)
+        sc = self._scalars()
         body = self._body(commutative, sc["cap"] > 0.0)
         up = self._upload
         t_d, c2p_d, owd_d, drop_d, reply_d, kcls_d, alive_d = (
             up(t), up(c2p), up(owd), up(drop), up(reply), up(kcls),
-            up(alive))
-        pool, ptr, cnt = (up(x) for x in self.device_pool_state())
+            up(alive[None]))
+        pool, ptr, cnt = (up(np.asarray(x)[None])
+                          for x in self.device_pool_state())
         outs = []
         for i in live:
+            # one group: each epoch's operands keep a leading axis of 1
             (pool, ptr, cnt), out, _ = body(
-                pool, ptr, cnt, t_d[i], c2p_d[i], owd_d[i], drop_d[i],
-                reply_d[i], alive_d, kcls_d[i], int(leader),
-                states[i].t.size, **sc)
+                pool, ptr, cnt, t_d[i:i + 1], c2p_d[i:i + 1],
+                owd_d[i:i + 1], drop_d[i:i + 1], reply_d[i:i + 1], alive_d,
+                kcls_d[i:i + 1], [leader], [states[i].t.size], **sc,
+                floor=[release_floor])
             outs.append(out)
-        ys = _pull([torch.stack(col) for col in zip(*outs)])
+        ys = _pull([torch.cat(col) for col in zip(*outs)])
         for j, i in enumerate(live):
             s = states[i]
             N = s.t.size

@@ -161,9 +161,26 @@ def key_group_np(keys: np.ndarray, n_groups: int) -> np.ndarray:
     return g.astype(np.int64)
 
 
+_SPLITMIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+_M64 = (1 << 64) - 1
+
+
 def key_group(key: int, n_groups: int) -> int:
-    """Scalar convenience form of `key_group_np`."""
-    return int(key_group_np(np.uint64(key), n_groups))
+    """Scalar form of `key_group_np`, in Python integers: the same mix and
+    range reduction, so the same group for every key in [0, 2^64) (a
+    sharded submit routes one key at a time, and the numpy form's per-call
+    cost is most of a submit's). Other keys go through the numpy form."""
+    if n_groups < 1:
+        raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+    if not isinstance(key, (int, np.integer)) or not 0 <= key <= _M64:
+        return int(key_group_np(np.uint64(key), n_groups))
+    if n_groups == 1:
+        return 0
+    z = ((int(key) ^ int(_GROUP_SALT)) + _SPLITMIX[0]) & _M64
+    z = ((z ^ (z >> 30)) * _SPLITMIX[1]) & _M64
+    z = ((z ^ (z >> 27)) * _SPLITMIX[2]) & _M64
+    z ^= z >> 31
+    return ((z >> 32) * n_groups & _M64) >> 32
 
 
 # ---------------------------------------------------------------------------

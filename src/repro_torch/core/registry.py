@@ -1,12 +1,17 @@
 """Port of `repro/core/registry.py`: `make_cluster(name, config)`.
 
-The port registers one backend so far:
+The port registers two backends so far:
 
   nezha-vectorized   `VectorizedNezhaCluster` -- the fused DOM engine on
                      ``VectorizedConfig.device`` (the card by default)
+  nezha-sharded      `ShardedNezhaCluster` -- G such groups over one key
+                     space (`ShardedConfig.groups`), cross-group multi-key
+                     ops at one pre-stamped global deadline; with
+                     ``vmap_groups=True`` all groups' epochs run as one
+                     batched call of the epoch body
 
-Config promotion: pass a `VectorizedConfig`, a bare `CommonConfig` (its
-shared fields are copied), or None (defaults). Extra keyword arguments go
+Config promotion: pass the backend's config class, a bare `CommonConfig`
+(its shared fields are copied), or None (defaults). Extra keyword arguments go
 to the cluster constructor.
 """
 from __future__ import annotations
@@ -15,6 +20,7 @@ from dataclasses import dataclass, fields
 from typing import Callable, Optional
 
 from repro_torch.core.cluster import Cluster, CommonConfig
+from repro_torch.core.sharded import ShardedConfig, ShardedNezhaCluster
 from repro_torch.core.vectorized_cluster import (
     VectorizedConfig,
     VectorizedNezhaCluster,
@@ -31,6 +37,8 @@ class ClusterEntry:
 _REGISTRY: dict[str, ClusterEntry] = {
     "nezha-vectorized": ClusterEntry("nezha-vectorized", VectorizedConfig,
                                      VectorizedNezhaCluster),
+    "nezha-sharded": ClusterEntry("nezha-sharded", ShardedConfig,
+                                  ShardedNezhaCluster),
 }
 
 

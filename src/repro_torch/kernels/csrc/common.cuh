@@ -49,6 +49,39 @@ __device__ __forceinline__ uint64_t umax64(uint64_t a, uint64_t b) {
 }
 
 // ---------------------------------------------------------------------------
+// the small routes' clusters
+// ---------------------------------------------------------------------------
+// Blocks of a small-route cluster for n lanes, `tile` a block: the least
+// power of two that holds them, from 1 up to `max_blocks`. A batch of many
+// short rows (a sharded epoch's groups) then takes small clusters, which
+// the card holds many of at once, where 16-block clusters would queue.
+inline int cluster_blocks(int n, int tile, int max_blocks) {
+  int nb = 1;
+  while (nb < max_blocks && nb * tile < n) nb *= 2;
+  return nb;
+}
+
+// Launches `kernel` as `clusters` clusters of `nb` blocks each: the
+// cluster size is chosen at launch, not compiled into the kernel.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int nb, int clusters,
+                            int threads, cudaStream_t stream,
+                            Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nb) * clusters);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nb;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// ---------------------------------------------------------------------------
 // launch geometry of dom_admit's own stages
 // ---------------------------------------------------------------------------
 constexpr int THREADS = 256;                 // threads per tile block
@@ -269,12 +302,12 @@ constexpr int LOOKBACK = 8;         // words read at once past an aggregate
 inline int os_tiles(int len) { return (len + OS_TILE - 1) / OS_TILE; }
 
 // The sort's work area, u32 words: hist [segments][8][256], the tile
-// counters [8][segments], the released count (dom_release), then two
-// banks of look-back status [2][segments][tiles][256]. Only the words
-// before the status banks need zeroing before the upfront kernel; the
-// upfront kernel zeroes bank 0 and pass p zeroes bank (p + 1) % 2.
+// counters [8][segments], the released counts [segments] (dom_release),
+// then two banks of look-back status [2][segments][tiles][256]. Only the
+// words before the status banks need zeroing before the upfront kernel;
+// the upfront kernel zeroes bank 0 and pass p zeroes bank (p + 1) % 2.
 __host__ __device__ inline size_t work_header_words(int segments) {
-  return static_cast<size_t>(segments) * (PASSES * 256 + PASSES) + 1;
+  return static_cast<size_t>(segments) * (PASSES * 256 + PASSES + 1);
 }
 inline size_t work_words(int len, int segments) {
   return work_header_words(segments) +
@@ -313,8 +346,9 @@ __device__ __forceinline__ void store_status(uint32_t* p, uint32_t v) {
 }
 
 // Histograms of all eight digits of each segment in one read of the keys.
-// With `d` given (dom_release) it first builds the masked keys, writes
-// them and counts the released lanes; otherwise it reads `keys`.
+// With `d` given (dom_release: a segment a row of d) it first builds the
+// masked keys of its segment, writes them and counts the segment's
+// released lanes; otherwise it reads `keys`.
 // Block (tile, segment) also zeroes its tile's words of status bank 0.
 __global__ void __launch_bounds__(OS_THREADS)
 onesweep_upfront(const double* __restrict__ d,
@@ -332,7 +366,8 @@ onesweep_upfront(const double* __restrict__ d,
   __syncthreads();
   const uint64_t key_now = time_key(now);
   const int lane = threadIdx.x & 31;
-  uint64_t* k = keys + static_cast<size_t>(seg) * len;
+  const size_t sbase = static_cast<size_t>(seg) * len;
+  uint64_t* k = keys + sbase;
   uint32_t released = 0;
   for (int c = 0; c < OS_ITEMS; ++c) {
     const int i = tile * OS_TILE + c * OS_THREADS + threadIdx.x;
@@ -342,7 +377,7 @@ onesweep_upfront(const double* __restrict__ d,
     uint64_t key = KEY_TOP;
     if (ok) {
       if (d != nullptr) {
-        key = release_key(d[i], admitted[i], key_now);
+        key = release_key(d[sbase + i], admitted[sbase + i], key_now);
         k[i] = key;
         released += key != KEY_TOP;
       } else {
@@ -374,7 +409,7 @@ onesweep_upfront(const double* __restrict__ d,
   }
   if (d != nullptr) {
     released = __reduce_add_sync(FULL, released);
-    if (lane == 0 && released != 0u) atomicAdd(w.released, released);
+    if (lane == 0 && released != 0u) atomicAdd(&w.released[seg], released);
   }
 }
 
@@ -388,8 +423,9 @@ struct PassStorage {
 };
 
 // One pass over digit `pass`. FIRST: the values are the element indices
-// (`vin` unread). TO_ORDER (dom_release's last pass): writes no keys, but
-// order[dst] = value, or -1 for a KEY_TOP key, and the released count.
+// in the segment (`vin` unread). TO_ORDER (dom_release's last pass):
+// writes no keys, but order[dst] = value, or -1 for a KEY_TOP key, and
+// the segment's released count into count[segment].
 template <bool FIRST, bool TO_ORDER>
 __global__ void __launch_bounds__(OS_THREADS, 3)    // three blocks an SM
 onesweep_pass(const uint64_t* __restrict__ kin,
@@ -510,7 +546,7 @@ onesweep_pass(const uint64_t* __restrict__ kin,
     }
   }
   if (TO_ORDER && tile == 0 && threadIdx.x == 0)
-    *count = static_cast<int32_t>(*w.released);
+    count[seg] = static_cast<int32_t>(w.released[seg]);
 }
 
 // The pass kernels' shared memory is above the 48 KB default: allowed once
@@ -543,10 +579,11 @@ cudaError_t launch_pass(dim3 grid, cudaStream_t stream, const uint64_t* ki,
 }
 
 // Sorts `segments` segments of `len` pairs by key, stably. With `d` given
-// (dom_release: one segment) the upfront kernel builds the keys into ka
-// from d/admitted/now, the first pass takes the indices as values and the
-// last writes `order` and `count`; otherwise the pairs start in (ka, va)
-// and end there. (kb, vb) are the other buffers, `work` holds
+// (dom_release: segment g is row g of d [segments, len]) the upfront
+// kernel builds the keys into ka from d/admitted/now, the first pass takes
+// the indices in the segment as values and the last writes `order`
+// [segments, len] and `count` [segments]; otherwise the pairs start in
+// (ka, va) and end there. (kb, vb) are the other buffers, `work` holds
 // work_words(len, segments) words. Launches: one memset of the work
 // area's header, the upfront kernel, eight passes.
 inline cudaError_t onesweep_sort(const double* d, const uint8_t* admitted,

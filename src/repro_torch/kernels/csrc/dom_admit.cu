@@ -6,14 +6,18 @@
 // update at max(d_i, a_i) -- in (time, aux) order, with
 // aux = (class * N + i) * 2 + kind and class 0 when d_i > a_i (else 1), and
 // admits i iff d_i exceeds the exclusive prefix max of the finite deadlines
-// before its test and a_i is finite.
+// before its test and a_i is finite. A launch takes G such batches at once
+// (deadlines [G, N], arrivals and admitted [G, N, R]): the G consensus
+// groups of a sharded epoch, which the reference runs under `jax.vmap`;
+// every (group, receiver) pair is a stream of its own.
 //
 // Bound on this card: memory, at least 8N + 8RN bytes read and RN written.
 // At the data plane's size a call is bound instead by the latency of its
 // dependent steps. Two routes, by N (`admit_route` in the wrapper):
 //
 //   small     N <= 16384 (the data plane's bucket of ~1e4 requests): one
-//             launch, R clusters of 16 blocks, cluster r = receiver r, every
+//             launch, G * R clusters of up to 16 blocks (the fewest that
+//             hold N), cluster g * R + r = receiver r of group g, every
 //             stage on chip. It sorts the N updates only: placed in aux
 //             order (class 0 in message order, then class 1), a stable LSD
 //             radix sort on the time key alone gives (time, aux) order. The
@@ -28,7 +32,8 @@
 //             inside one block's slice, read through distributed shared
 //             memory, and compares d_i with the prefix max there. No test
 //             event is sorted and no verdict is scattered back.
-//   onesweep  larger N, over tiles x receivers, every stage multi-block:
+//   onesweep  larger N, over tiles x (group, receiver) segments, every
+//             stage multi-block:
 //     1. place   the 2N events directly in aux order, with no sort: first
 //                the updates with d > a in message order, then for each
 //                message its test followed by its update when d <= a. One
@@ -59,13 +64,17 @@ using dom::umax64;
 namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
-// small route: one 16-block cluster per receiver
+// small route: one cluster per (group, receiver)
 // ---------------------------------------------------------------------------
-// Block b of cluster r holds messages [b * AD_TILE, (b + 1) * AD_TILE) at
+// A cluster has the fewest blocks that hold n messages -- 1, 2, 4, 8 or
+// AD_BLOCKS (`dom::cluster_blocks`), one instantiation of the kernel each,
+// so its loops over blocks stay unrolled. Block b of cluster
+// g * R + r holds group g's messages [b * AD_TILE, (b + 1) * AD_TILE) at
 // receiver r and, once sorted, the same slice of r's update order. Remote
 // stores land only between cluster barriers, and no block leaves while
 // another may still read or write its shared memory.
-constexpr int AD_BLOCKS = 16;      // past the portable 8: admit_small_ready
+constexpr int AD_BLOCKS = 16;      // at most; past the portable 8:
+                                   // admit_small_ready
 constexpr int AD_THREADS = 256;
 constexpr int AD_WARPS = AD_THREADS / 32;
 constexpr int AD_ITEMS = 4;
@@ -138,8 +147,8 @@ __device__ __forceinline__ bool precedes(ulonglong2 u, const Decompress& dk,
   return k < key_a || (k == key_a && static_cast<uint32_t>(u.y) < thr);
 }
 
-__global__ void __cluster_dims__(AD_BLOCKS, 1, 1)
-__launch_bounds__(AD_THREADS, 1)
+template <int NB>          // blocks of the cluster (its size at launch)
+__global__ void __launch_bounds__(AD_THREADS, 1)
 admit_small(const double* __restrict__ d, const double* __restrict__ a,
             int n, int R, uint8_t* __restrict__ admitted) {
   __shared__ AdmitStorage s;
@@ -147,7 +156,12 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
   // no block writes another's shared memory before every block has started
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   const int b = static_cast<int>(cluster.block_rank());
-  const int r = static_cast<int>(blockIdx.x) / AD_BLOCKS;
+  const int pair = static_cast<int>(blockIdx.x) / NB;          // g * R + r
+  const int r = pair % R;
+  const size_t group = static_cast<size_t>(pair / R) * n;
+  d += group;
+  a += group * R;
+  admitted += group * R;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int lo = b * AD_TILE;
@@ -203,7 +217,7 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 
   // 2. exchange the slice's class-0 count and finite key range
-  if (threadIdx.x < AD_BLOCKS) {
+  if (threadIdx.x < NB) {
     AdmitStorage* o = cluster.map_shared_rank(&s, threadIdx.x);
     o->key_lo[b] = slice_lo;
     o->key_hi[b] = slice_hi;
@@ -213,7 +227,7 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
   uint32_t early_total = 0;
   uint64_t least = ~0ull, largest = 0;
 #pragma unroll
-  for (int q = 0; q < AD_BLOCKS; ++q) {
+  for (int q = 0; q < NB; ++q) {
     const uint32_t v = s.early[q];
     before += q < b ? v : 0u;
     early_total += v;
@@ -248,7 +262,7 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
   bits = warp_or64(bits);
   if (lane == 0) s.w64[2][warp] = bits;
   __syncthreads();
-  if (threadIdx.x < AD_BLOCKS) {
+  if (threadIdx.x < NB) {
     uint64_t v = 0;
 #pragma unroll
     for (int w = 0; w < AD_WARPS; ++w) v |= s.w64[2][w];
@@ -259,7 +273,7 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
   // none is finite): a digit varies iff some key has it non-zero
   uint64_t varying = 0;
 #pragma unroll
-  for (int q = 0; q < AD_BLOCKS; ++q) varying |= s.bits[q];
+  for (int q = 0; q < NB; ++q) varying |= s.bits[q];
 
   // 3. sort: stable LSD passes over the digits that vary, as in
   // dom_release's release_small (warp-striped items in registers)
@@ -283,13 +297,13 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
     if (((varying >> shift) & 0xFFu) == 0u) continue;   // constant digit
     dom::rank_tile<AD_THREADS, AD_ITEMS>(key, shift, tile_len, s.rank, pos);
     const uint32_t count = s.rank.total[threadIdx.x];   // thread t: digit t
-    for (int q = 0; q < AD_BLOCKS; ++q)
+    for (int q = 0; q < NB; ++q)
       cluster.map_shared_rank(&s, q)->u.counts[b][threadIdx.x] = count;
     // every block's counts are in; every block has read its slice of the
     // last exchange into registers
     cluster.sync();
     uint32_t all = 0, below = 0;
-    for (int q = 0; q < AD_BLOCKS; ++q) {
+    for (int q = 0; q < NB; ++q) {
       const uint32_t v = s.u.counts[q][threadIdx.x];
       below += q < b ? v : 0u;
       all += v;
@@ -356,13 +370,13 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
 #pragma unroll
   for (int c = 0; c < AD_ITEMS; ++c)
     if (mine + c < tile_len) s.u.pmax[mine + c] = umax64(carry, run[c]);
-  if (threadIdx.x < AD_BLOCKS) {
+  if (threadIdx.x < NB) {
     AdmitStorage* o = cluster.map_shared_rank(&s, threadIdx.x);
     o->slice_max[b] = slice_max;
     o->head[b] = tile_len > 0 ? s.item[0] : make_ulonglong2(0ull, 0ull);
   }
   cluster.sync();                            // every prefix max is written
-  if (threadIdx.x < AD_BLOCKS) {
+  if (threadIdx.x < NB) {
     uint64_t v = 0;
     for (int q = 0; q < static_cast<int>(threadIdx.x); ++q)
       v = umax64(v, s.slice_max[q]);
@@ -382,7 +396,7 @@ admit_small(const double* __restrict__ d, const double* __restrict__ a,
   }
   // slices whose first update precedes the test (a prefix of them)
 #pragma unroll
-  for (int step = AD_BLOCKS; step > 0; step >>= 1) {
+  for (int step = NB; step > 0; step >>= 1) {
 #pragma unroll
     for (int c = 0; c < AD_ITEMS; ++c) {
       if (ka[c] != KEY_INF && k[c] + step <= n_slices &&
@@ -433,22 +447,60 @@ cudaError_t admit_small_ready() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 64 && ready[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(admit_small,
+  e = cudaFuncSetAttribute(admit_small<AD_BLOCKS>,
                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess && dev < 64) ready[dev] = true;
   return e;
 }
 
+// G * R clusters of the fewest blocks that hold n messages.
+cudaError_t launch_small(const double* d, const double* a, int n, int R,
+                         int G, uint8_t* admitted, cudaStream_t st) {
+  const int nb = dom::cluster_blocks(n, AD_TILE, AD_BLOCKS);
+  switch (nb) {
+    case 1:
+      return dom::launch_clusters(admit_small<1>, 1, G * R, AD_THREADS, st,
+                                  d, a, n, R, admitted);
+    case 2:
+      return dom::launch_clusters(admit_small<2>, 2, G * R, AD_THREADS, st,
+                                  d, a, n, R, admitted);
+    case 4:
+      return dom::launch_clusters(admit_small<4>, 4, G * R, AD_THREADS, st,
+                                  d, a, n, R, admitted);
+    case 8:
+      return dom::launch_clusters(admit_small<8>, 8, G * R, AD_THREADS, st,
+                                  d, a, n, R, admitted);
+    default:
+      return dom::launch_clusters(admit_small<AD_BLOCKS>, AD_BLOCKS, G * R,
+                                  AD_THREADS, st, d, a, n, R, admitted);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // onesweep route
 // ---------------------------------------------------------------------------
-// Per tile of messages: the number with d > a at receiver r.
+// Segment s = g * R + r of the onesweep route is receiver r of group g:
+// its deadlines start at row g of d [G, n], its arrivals at row g of a
+// [G, n, R], column r.
+struct Segment {
+  int r;
+  size_t group;      // g * n
+};
+
+__device__ __forceinline__ Segment segment(int s, int n, int R) {
+  return Segment{s % R, static_cast<size_t>(s / R) * n};
+}
+
+// Per tile of messages: the number with d > a at the segment's receiver.
 __global__ void admit_count_early(const double* __restrict__ d,
                                   const double* __restrict__ a, int n, int R,
                                   uint32_t* __restrict__ tile_count, int ntm) {
   __shared__ uint32_t smem[THREADS];
   const int tile = blockIdx.x;
-  const int r = blockIdx.y;
+  const Segment sg = segment(blockIdx.y, n, R);
+  const int r = sg.r;
+  d += sg.group;
+  a += sg.group * R;
   uint32_t c = 0;
   for (int j = threadIdx.x; j < TILE; j += THREADS) {
     const int i = tile * TILE + j;
@@ -457,10 +509,10 @@ __global__ void admit_count_early(const double* __restrict__ d,
   }
   const uint32_t ex = dom::block_exclusive_sum<THREADS>(c, smem);
   if (threadIdx.x == THREADS - 1)
-    tile_count[static_cast<size_t>(r) * ntm + tile] = ex + c;
+    tile_count[static_cast<size_t>(blockIdx.y) * ntm + tile] = ex + c;
 }
 
-// Writes the 2N events of receiver r in aux order. `tile_base` is the
+// Writes the 2N events of one segment in aux order. `tile_base` is the
 // exclusive scan of admit_count_early's counts, `early_total` their sums.
 // Event value: message * 2 + kind (0 test, 1 update).
 __global__ void admit_place(const double* __restrict__ d,
@@ -471,7 +523,11 @@ __global__ void admit_place(const double* __restrict__ d,
                             uint32_t* __restrict__ vals) {
   __shared__ uint32_t smem[THREADS];
   const int tile = blockIdx.x;
-  const int r = blockIdx.y;
+  const int s = blockIdx.y;
+  const Segment sg = segment(s, n, R);
+  const int r = sg.r;
+  d += sg.group;
+  a += sg.group * R;
   const int first = tile * TILE + threadIdx.x * ITEMS;  // thread-contiguous
   uint64_t kd[ITEMS], ka[ITEMS];
   uint32_t c = 0;
@@ -486,10 +542,10 @@ __global__ void admit_place(const double* __restrict__ d,
       c += kd[k] > ka[k];
     }
   }
-  uint32_t before = tile_base[static_cast<size_t>(r) * ntm + tile] +
+  uint32_t before = tile_base[static_cast<size_t>(s) * ntm + tile] +
                     dom::block_exclusive_sum<THREADS>(c, smem);
-  const uint32_t total = early_total[r];
-  const size_t seg = static_cast<size_t>(r) * 2 * n;
+  const uint32_t total = early_total[s];
+  const size_t seg = static_cast<size_t>(s) * 2 * n;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
     const int i = first + k;
@@ -519,11 +575,13 @@ __device__ __forceinline__ uint64_t candidate(uint32_t v,
 }
 
 __global__ void admit_tile_max(const uint32_t* __restrict__ vals,
-                               const double* __restrict__ d, int len,
+                               const double* __restrict__ d, int n, int R,
                                uint64_t* __restrict__ tile_max, int nte) {
   __shared__ uint64_t smem[THREADS];
   const int tile = blockIdx.x;
+  const int len = 2 * n;
   const size_t seg = static_cast<size_t>(blockIdx.y) * len;
+  d += segment(blockIdx.y, n, R).group;
   uint64_t m = 0;
   for (int j = threadIdx.x; j < TILE; j += THREADS) {
     const int e = tile * TILE + j;
@@ -542,9 +600,12 @@ __global__ void admit_decide(const uint64_t* __restrict__ keys,
                              uint8_t* __restrict__ admitted) {
   __shared__ uint64_t smem[THREADS];
   const int tile = blockIdx.x;
-  const int r = blockIdx.y;
+  const Segment sg = segment(blockIdx.y, n, R);
+  const int r = sg.r;
+  d += sg.group;
+  admitted += sg.group * R;
   const int len = 2 * n;
-  const size_t seg = static_cast<size_t>(r) * len;
+  const size_t seg = static_cast<size_t>(blockIdx.y) * len;
   const int first = tile * TILE + threadIdx.x * ITEMS;  // thread-contiguous
   uint64_t cand[ITEMS];
   uint32_t val[ITEMS];
@@ -556,7 +617,8 @@ __global__ void admit_decide(const uint64_t* __restrict__ keys,
     cand[k] = e < len ? candidate(val[k], d) : 0ull;
     m = umax64(m, cand[k]);
   }
-  uint64_t run = umax64(tile_carry[static_cast<size_t>(r) * nte + tile],
+  uint64_t run = umax64(tile_carry[static_cast<size_t>(blockIdx.y) * nte +
+                                   tile],
                         dom::block_exclusive_max<THREADS>(m, smem));
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
@@ -581,64 +643,82 @@ const char* kernel_error_string(int code) {
 // The small route's largest n (the wrapper mirrors it).
 int dom_admit_small_max() { return SMALL_MAX; }
 
-// Clusters of the small route resident at once on this device, for R
-// receivers (cudaOccupancyMaxActiveClusters); clusters past it wait.
+// Clusters of the small route at its largest (16 blocks) resident at once
+// on this device, for R receivers of one group
+// (cudaOccupancyMaxActiveClusters); clusters past it wait.
 int dom_admit_small_clusters(int R, int* clusters) {
   DOM_CHECK(admit_small_ready());
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(AD_BLOCKS * (R > 1 ? R : 1));
   cfg.blockDim = dim3(AD_THREADS);
-  DOM_CHECK(cudaOccupancyMaxActiveClusters(clusters, admit_small, &cfg));
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = AD_BLOCKS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  DOM_CHECK(cudaOccupancyMaxActiveClusters(clusters, admit_small<AD_BLOCKS>,
+                                            &cfg));
   return 0;
 }
 
-// Small route: n <= SMALL_MAX; deadlines [n] f64, arrivals [n, R] f64
-// (row-major), admitted [n, R] u8. One launch, no scratch.
+// Blocks of each small-route cluster at n messages (the wrapper mirrors
+// it).
+int dom_admit_small_blocks(int n) {
+  return dom::cluster_blocks(n, AD_TILE, AD_BLOCKS);
+}
+
+// Small route: n <= SMALL_MAX; deadlines [G, n] f64, arrivals [G, n, R]
+// f64 (row-major), admitted [G, n, R] u8. One launch, no scratch.
 int dom_admit_small_launch(const double* deadlines, const double* arrivals,
-                           int n, int R, uint8_t* admitted, void* stream) {
-  if (n < 0 || n > SMALL_MAX || R < 0)
+                           int n, int R, int G, uint8_t* admitted,
+                           void* stream) {
+  if (n < 0 || n > SMALL_MAX || R < 0 || G < 1 ||
+      static_cast<long long>(G) * R * AD_BLOCKS > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || R == 0) return 0;
   DOM_CHECK(admit_small_ready());
-  admit_small<<<AD_BLOCKS * R, AD_THREADS, 0,
-                static_cast<cudaStream_t>(stream)>>>(deadlines, arrivals, n,
-                                                     R, admitted);
-  DOM_CHECK_LAUNCH();
+  DOM_CHECK(launch_small(deadlines, arrivals, n, R, G, admitted,
+                         static_cast<cudaStream_t>(stream)));
   return 0;
 }
 
-// Onesweep route, same arguments. Scratch: ka, kb [R * 2n] u64; va, vb
-// [R * 2n] u32; the sort's work area [dom::work_words(2n, R)] u32;
-// tile_count [R * ceil(n / TILE)] u32; early_total [R] u32;
-// tile_max [R * ceil(2n / TILE)] u64.
+// Onesweep route, same arguments; S = G * R segments. Scratch: ka, kb
+// [S * 2n] u64; va, vb [S * 2n] u32; the sort's work area
+// [dom::work_words(2n, S)] u32; tile_count [S * ceil(n / TILE)] u32;
+// early_total [S] u32; tile_max [S * ceil(2n / TILE)] u64.
 int dom_admit_onesweep_launch(const double* deadlines, const double* arrivals,
-                              int n, int R, uint8_t* admitted, uint64_t* ka,
-                              uint64_t* kb, uint32_t* va, uint32_t* vb,
-                              uint32_t* work, uint32_t* tile_count,
-                              uint32_t* early_total, uint64_t* tile_max,
-                              void* stream) {
+                              int n, int R, int G, uint8_t* admitted,
+                              uint64_t* ka, uint64_t* kb, uint32_t* va,
+                              uint32_t* vb, uint32_t* work,
+                              uint32_t* tile_count, uint32_t* early_total,
+                              uint64_t* tile_max, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < 0 || R < 0 || G < 1 || static_cast<long long>(G) * R > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || R == 0) return 0;
+  const int S = G * R;
   const int ntm = dom::n_tiles(n);
   const int len = 2 * n;
   const int nte = dom::n_tiles(len);
-  admit_count_early<<<dim3(ntm, R), THREADS, 0, st>>>(deadlines, arrivals, n,
+  admit_count_early<<<dim3(ntm, S), THREADS, 0, st>>>(deadlines, arrivals, n,
                                                       R, tile_count, ntm);
   DOM_CHECK_LAUNCH();
-  dom::exclusive_sum_segments<<<R, dom::SCAN_THREADS, 0, st>>>(
+  dom::exclusive_sum_segments<<<S, dom::SCAN_THREADS, 0, st>>>(
       tile_count, ntm, early_total);
   DOM_CHECK_LAUNCH();
-  admit_place<<<dim3(ntm, R), THREADS, 0, st>>>(
+  admit_place<<<dim3(ntm, S), THREADS, 0, st>>>(
       deadlines, arrivals, n, R, tile_count, ntm, early_total, ka, va);
   DOM_CHECK_LAUNCH();
   DOM_CHECK(dom::onesweep_sort(nullptr, nullptr, 0.0, ka, kb, va, vb,
-                               nullptr, nullptr, len, R, work, st));
-  admit_tile_max<<<dim3(nte, R), THREADS, 0, st>>>(va, deadlines, len,
+                               nullptr, nullptr, len, S, work, st));
+  admit_tile_max<<<dim3(nte, S), THREADS, 0, st>>>(va, deadlines, n, R,
                                                    tile_max, nte);
   DOM_CHECK_LAUNCH();
-  dom::exclusive_max_segments<<<R, dom::SCAN_THREADS, 0, st>>>(tile_max, nte);
+  dom::exclusive_max_segments<<<S, dom::SCAN_THREADS, 0, st>>>(tile_max, nte);
   DOM_CHECK_LAUNCH();
-  admit_decide<<<dim3(nte, R), THREADS, 0, st>>>(ka, va, deadlines, n, R,
+  admit_decide<<<dim3(nte, S), THREADS, 0, st>>>(ka, va, deadlines, n, R,
                                                  tile_max, nte, admitted);
   DOM_CHECK_LAUNCH();
   return 0;

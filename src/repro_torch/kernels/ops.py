@@ -52,7 +52,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _ssd_scan(x, dt, A, B, C, chunk=chunk)
 
 
-# Early-buffer admission [N], [N, R] -> [N, R] bool on the tensors' device.
+# Early-buffer admission [N], [N, R] -> [N, R] bool on the tensors' device
+# (or [G, N], [G, N, R] -> [G, N, R], one launch for all G groups).
 dom_admit_device = _admit
 
 
@@ -65,13 +66,14 @@ def dom_admit(deadlines, arrivals, *, device="cuda") -> np.ndarray:
 
 
 def dom_deadline_order_device(deadlines: torch.Tensor) -> torch.Tensor:
-    """Stable deadline order [N] -> int64 [N] on the deadlines' device.
+    """Stable deadline order [N] -> int64 [N] on the deadlines' device, or
+    of each row of [G, N] -> [G, N] (one launch for all G rows).
 
     With every message admitted and the clock at +inf the early-buffer drain
     is the plain stable deadline sort: ties by id, non-finite deadlines at
     the tail, always a permutation of [0, N)."""
-    n = deadlines.shape[0]
-    adm = torch.ones(n, dtype=torch.bool, device=deadlines.device)
+    adm = torch.ones(deadlines.shape, dtype=torch.bool,
+                     device=deadlines.device)
     order, _ = dom_release(deadlines, adm, float("inf"))
     return order.to(torch.int64)
 

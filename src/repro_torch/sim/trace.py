@@ -64,11 +64,11 @@ each cross-group op, at which pre-stamped global deadline) -- checked by:
                             multi-ops share >= 2 groups.
 
 The checkers are plain numpy over trace data. The port records traces from
-its one backend, ``nezha-vectorized`` (`CommitTrace.from_vectorized_cluster`);
-the sharded backend (ROADMAP B4) and the event backend (ROADMAP B6) are not
-ported, so `from_cluster` raises for them. `run_scenario_with_trace` is the
-one-call form; like `run_scenario` it runs on the card unless passed
-``device="cpu"``.
+its two backends, ``nezha-vectorized`` (`CommitTrace.from_vectorized_cluster`)
+and ``nezha-sharded`` (`ShardedTrace.from_sharded_cluster`); the event
+backend (ROADMAP B6) is not ported, so `from_cluster` raises for it.
+`run_scenario_with_trace` is the one-call form; like `run_scenario` it runs
+on the card unless passed ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -214,9 +214,14 @@ class ShardedTrace:
 
     @classmethod
     def from_sharded_cluster(cls, cluster) -> "ShardedTrace":
-        raise NotImplementedError(
-            "the sharded backend (nezha-sharded) is not ported yet "
-            "(ROADMAP B4); build a ShardedTrace from its fields")
+        return cls(
+            protocol=cluster.protocol, backend=cluster.backend,
+            tier=cluster.groups[0].engine.tier_name,
+            groups=[CommitTrace.from_vectorized_cluster(g)
+                    for g in cluster.groups],
+            multiops={int(u): {"groups": tuple(info["groups"]),
+                               "deadline": float(info["deadline"])}
+                      for u, info in cluster._multi.items()})
 
 
 # ---------------------------------------------------------------------------

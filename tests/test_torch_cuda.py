@@ -4,8 +4,11 @@ the flash-attention and SSD-scan kernels against the same paths on their
 plain versions, and the inchash kernel against its plain version and the
 32-bit numpy mirror, bit for bit, eagerly, across calls that shrink and
 grow, on two streams at once and replayed from a CUDA graph with new
-inputs, in one stream operation a call; and cataloged scenarios of
-`repro_torch.sim.scenario` on the card against their CPU runs, bit for bit.
+inputs, in one stream operation a call; cataloged scenarios of
+`repro_torch.sim.scenario` on the card against their CPU runs, bit for bit;
+and the DOM kernels' batched form over G groups (one launch for all G)
+against its plain version, with `nezha-sharded`'s batched path on the card
+against its sequential path and the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -13,13 +16,14 @@ runs where only the port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import ctypes
 from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import VectorizedConfig, make_cluster
+from repro_torch.core import ShardedConfig, VectorizedConfig, make_cluster
 from repro_torch.core.hashing import entry_hash32_np
 from repro_torch.kernels import build
 from repro_torch.kernels import dom_admit as admit_mod
@@ -268,15 +272,16 @@ def test_release_kernel_edge_inputs(dev, kind, n):
 def test_release_geometry_matches_the_wrappers_mirror(dev):
     """The wrapper's route limit, tile and scratch size are those of the
     CUDA source."""
-    import ctypes
-
     fn = build.bind(build.library("dom_release"), "dom_release_geometry",
-                    [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)])
+                    [ctypes.c_int, ctypes.c_int,
+                     ctypes.POINTER(ctypes.c_longlong)])
     out = (ctypes.c_longlong * 3)()
     for n in (0, 1, 4095, 4096, 16385, 1 << 20, 1 << 24):
-        fn(n, out)
-        assert list(out) == [release_mod.SMALL_MAX, release_mod.ONESWEEP_TILE,
-                             release_mod.onesweep_scratch_bytes(n)]
+        for G in (1, 2, 64):
+            fn(n, G, out)
+            assert list(out) == [release_mod.SMALL_MAX,
+                                 release_mod.ONESWEEP_TILE,
+                                 release_mod.onesweep_scratch_bytes(n, G)]
 
 
 def test_wrappers_launch_the_kernels_on_cuda_tensors(dev):
@@ -981,3 +986,152 @@ def test_total_outage_at_1e6_takes_the_onesweep_route_on_the_card(dev):
     res_g, tr_g, res_c, tr_c, (admit, release) = _scenario_pair(sc, cfg)
     _assert_card_equals_cpu(res_g, tr_g, res_c, tr_c)
     assert admit["onesweep"] > 0 and admit == release
+
+
+# ---------------------------------------------------------------------------
+# the DOM kernels batched over G groups, and nezha-sharded on the card
+# ---------------------------------------------------------------------------
+def _group_batch(rng, G, n_pad, r=3):
+    """G realistic DOM batches of ragged lengths, +inf padding lanes to
+    n_pad (group 0 full, the last one a single message)."""
+    d = np.full((G, n_pad), np.inf)
+    a = np.full((G, n_pad, r), np.inf)
+    for g in range(G):
+        n = n_pad if g == 0 else 1 if g == G - 1 else \
+            int(rng.integers(1, n_pad + 1))
+        d[g, :n], a[g, :n] = _batch(rng, n, r)
+    return d, a
+
+
+# phase 11's shapes (G, N): the small route at 4 x 16384, 16 x 4096 and
+# 64 x 1024, the onesweep route at 2 x 65536; and odd sizes
+@pytest.mark.parametrize("G,n", [(4, 16384), (16, 4096), (64, 1024),
+                                 (2, 65536), (3, 333), (5, 16385), (1, 777)])
+def test_batched_dom_kernels_equal_plain(dev, G, n):
+    """One launch of each DOM kernel for all G groups == the batched plain
+    versions, bit for bit, and == G launches of the G 1 form."""
+    rng = np.random.default_rng(G * n)
+    d, a = _group_batch(rng, G, n)
+    dt, at = torch.as_tensor(d, device=dev), torch.as_tensor(a, device=dev)
+    small = n <= admit_mod.SMALL_MAX
+    before = (_routes(), _admit_routes())
+    adm = admit_mod.dom_admit(dt, at)
+    order = ops.dom_deadline_order_device(dt)
+    assert (_routes(), _admit_routes()) == (
+        tuple(x + y for x, y in zip(before[0], (1, small, not small))),
+        tuple(x + y for x, y in zip(before[1], (1, small, not small))))
+    assert adm.shape == (G, n, 3) and order.shape == (G, n)
+    assert torch.equal(adm, admit_mod.dom_admit_plain(dt, at))
+    assert torch.equal(order, ops.dom_deadline_order_device(dt.cpu()).to(dev))
+    rel, cnt = release_mod.dom_release(dt, adm[..., 1], float(np.median(d[0])))
+    want, wcnt = release_mod.dom_release_plain(dt, adm[..., 1],
+                                               float(np.median(d[0])))
+    assert torch.equal(rel, want) and torch.equal(cnt, wcnt)
+    for g in (0, G // 2, G - 1):
+        assert torch.equal(adm[g], admit_mod.dom_admit(dt[g], at[g]))
+        assert torch.equal(order[g], ops.dom_deadline_order_device(dt[g]))
+    if small:                   # the other route on the same inputs
+        assert torch.equal(admit_mod.dom_admit_cuda(dt, at, route="onesweep"),
+                           adm)
+        ones = torch.ones_like(adm[..., 0])
+        assert torch.equal(release_mod.dom_release_cuda(
+            dt, ones, float("inf"), route="onesweep")[0].to(torch.int64),
+            order)
+
+
+def test_batched_dom_kernels_raise_when_their_build_or_launch_fails(
+        dev, monkeypatch):
+    """No fallback on the batched form either: no plain version and no
+    per-group launches when the build or the launch fails."""
+    rng = np.random.default_rng(11)
+    d, a = _group_batch(rng, 4, 1024)
+    dt, at = torch.as_tensor(d, device=dev), torch.as_tensor(a, device=dev)
+    ones = torch.ones(dt.shape, dtype=torch.bool, device=dev)
+    before = (_routes(), _admit_routes())
+    monkeypatch.setattr(build, "library", lambda name: _FailingLaunch())
+    with pytest.raises(RuntimeError, match="dom_release kernel launch failed"):
+        release_mod.dom_release(dt, ones, float("inf"))
+    with pytest.raises(RuntimeError, match="dom_admit kernel launch failed"):
+        admit_mod.dom_admit(dt, at)
+    assert (_routes(), _admit_routes()) == before
+
+
+def _sharded_run(device, G, vmap):
+    cfg = ShardedConfig(groups=G, n_clients=8, seed=G, device=device,
+                        vmap_groups=vmap, client_timeout=4e-3,
+                        net=NetworkParams(drop_prob=0.02))
+    cl = make_cluster("nezha-sharded", cfg)
+    gens = [0]
+    for grp in cl.groups:
+        run_epoch = grp.engine.run_epoch
+
+        def counted(*args, _run=run_epoch, **kw):
+            gens[0] += 1
+            return _run(*args, **kw)
+        grp.engine.run_epoch = counted
+    for mod in (admit_mod, release_mod):
+        mod.launches = mod.launches_small = mod.launches_onesweep = 0
+    WorkloadDriver(Workload(rate_per_client=20_000.0, duration=0.08,
+                            seed=G)).run(cl)
+    counts = (admit_mod.launches, release_mod.launches)
+    return cl, gens[0], counts
+
+
+@pytest.mark.parametrize("G", [4, 16])
+def test_sharded_batched_on_the_card_equals_sequential_and_the_cpu(dev, G):
+    """`nezha-sharded` with the batched path on the card == its sequential
+    path on the card == the CPU, bit for bit; batched, each kernel launches
+    once per lockstep epoch with work plus once per retry generation."""
+    bat, gens, (admit, release) = _sharded_run("cuda", G, True)
+    seq, seq_gens, seq_counts = _sharded_run("cuda", G, False)
+    cpu, _, cpu_counts = _sharded_run("cpu", G, True)
+    assert bat.vmap_epochs > 0 and admit == release == bat.vmap_epochs + gens
+    assert seq_counts == (seq_gens, seq_gens) and cpu_counts == (0, 0)
+    s = bat.summary()
+    assert s["tier"] == "torch-cuda" and s["committed"] > 0
+    for other in (seq, cpu):
+        o = other.summary()
+        _same({k: v for k, v in s.items() if k not in ("tier",
+                                                        "vmap_epochs")},
+              {k: v for k, v in o.items() if k not in ("tier",
+                                                        "vmap_epochs")})
+        _same(bat._merged_latencies()[0], other._merged_latencies()[0])
+        for a, b in zip(bat.groups, other.groups):
+            for x, y in zip(a._trace_commits, b._trace_commits):
+                _same(list(x), list(y))
+            _same(a.engine.logs.log_columns(), b.engine.logs.log_columns())
+
+
+@pytest.mark.parametrize("name", ["sharded-multi-key", "sharded-group-crash"])
+def test_sharded_scenario_on_the_card_equals_the_cpu(dev, name):
+    card = run_scenario_with_trace("nezha-sharded", name, device="cuda")
+    cpu = run_scenario_with_trace("nezha-sharded", name, device="cpu")
+    (res_g, tr_g), (res_c, tr_c) = card, cpu
+    assert (res_g.tier, res_c.tier) == ("torch-cuda", "torch-cpu")
+    assert res_g.skipped_faults == 0 and res_g.committed > 0
+    for key in SCENARIO_RESULT_KEYS:
+        if key != "tier":
+            _same(getattr(res_g, key), getattr(res_c, key), key)
+    for g, (a, b) in enumerate(zip(tr_g.groups, tr_c.groups)):
+        for part in ("log", "commits", "stamps", "durability"):
+            _same(getattr(a, part), getattr(b, part), f"{g} {part}")
+    _same(tr_g.multiops, tr_c.multiops)
+    assert _findings(tr_g) == _findings(tr_c)
+    if name == "sharded-group-crash":
+        assert res_g.raw["per_group_view_changes"] == [0, 1, 0, 0]
+    else:
+        assert res_g.cross_group_violations == 0
+
+
+def test_small_route_cluster_sizes_match_the_wrappers_mirror(dev):
+    """Each small route takes the fewest 1024-lane blocks that hold n, up to
+    16, in both kernels' sources as in `small_route_blocks`."""
+    rel = build.bind(build.library("dom_release"), "dom_release_small_blocks",
+                     [ctypes.c_int])
+    adm = build.bind(build.library("dom_admit"), "dom_admit_small_blocks",
+                     [ctypes.c_int])
+    for n in (0, 1, 1023, 1024, 1025, 2048, 2049, 4096, 8193, 16384):
+        want = release_mod.small_route_blocks(n)
+        assert rel(n) == adm(n) == want, n
+    assert [release_mod.small_route_blocks(n) for n in (977, 3907, 15625)] \
+        == [1, 4, 16]

@@ -212,12 +212,14 @@ def test_device_fetch_and_bound_equal_the_host_mirrors():
     owd[:37] = rng.lognormal(np.log(60e-6), 0.6, (37, 3))
     t = np.full(n_pad, np.inf)
     t[:37] = np.sort(rng.uniform(0, 1e-2, 37))
-    up = torch.as_tensor
+    def up(x):                  # one group: a leading axis of 1
+        return torch.as_tensor(np.asarray(x)[None])
+
     carry, outs, bound = body(
         up(pool), up(ptr), up(cnt), up(t), up(np.zeros(n_pad)), up(owd),
         up(np.zeros((n_pad, 3), bool)), up(np.full((n_pad, 3), np.inf)),
-        up(np.ones(3, bool)), up(np.full(n_pad, -1)), 0, 37,
-        **port._scalars(0.0))
+        up(np.ones(3, bool)), up(np.full(n_pad, -1)), [0], [37],
+        **port._scalars(), floor=[0.0])
     want = port.update_bound(owd[:37])
     assert float(bound) == want
     assert int(carry[2]) == 37 * 3 and int(carry[1]) == 37 * 3

@@ -420,22 +420,25 @@ def test_release_route_by_size(n, route):
 
 
 def test_onesweep_scratch_sizes():
-    """The work area: per segment 8 digit histograms of 256 words and 8
-    tile counters, one released count, then two look-back banks of 256
+    """The work area: per segment 8 digit histograms of 256 words, 8 tile
+    counters and one released count, then two look-back banks of 256
     words a 4096-key tile and segment; the scratch adds two u64 key and
-    two u32 id buffers."""
-    header = 8 * 256 + 8
-    assert release_mod.onesweep_work_words(0, 1) == header + 1
+    two u32 id buffers, G rows' worth for a batched call."""
+    header = 8 * 256 + 8 + 1
+    assert release_mod.onesweep_work_words(0, 1) == header
     for length, tiles in ((1, 1), (4096, 1), (4097, 2), (16385, 5),
                           (1 << 24, 4096)):
         assert release_mod.onesweep_work_words(length, 1) == \
-            header + 1 + 2 * tiles * 256
+            header + 2 * tiles * 256
     # dom_admit's main shape: 3 receivers of 2 x 16384 events
     assert release_mod.onesweep_work_words(2 * 16384, 3) == \
-        3 * header + 1 + 2 * 3 * 8 * 256
+        3 * header + 2 * 3 * 8 * 256
     n = 16385
     assert release_mod.onesweep_scratch_bytes(n) == \
-        24 * n + 4 * (header + 1 + 2 * 5 * 256)
+        24 * n + 4 * (header + 2 * 5 * 256)
+    # a batched call over G = 2 rows of 65536: 16 tiles a segment
+    assert release_mod.onesweep_scratch_bytes(65536, 2) == \
+        24 * 2 * 65536 + 4 * (2 * header + 2 * 2 * 16 * 256)
 
 
 # ---------------------------------------------------------------------------

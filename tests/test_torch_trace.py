@@ -238,12 +238,25 @@ def test_assert_forms_and_equivalence_match_the_reference():
 
 
 def test_unported_backends_raise_naming_the_roadmap_item():
+    """The event backend (B6) is not ported: its trace builder raises. The
+    sharded backend is (B4): `from_cluster` records its `ShardedTrace`."""
     with pytest.raises(NotImplementedError, match="B6"):
         PT.CommitTrace.from_cluster(types.SimpleNamespace(backend="event"))
-    with pytest.raises(NotImplementedError, match="B4"):
-        PT.CommitTrace.from_cluster(types.SimpleNamespace(backend="sharded"))
-    with pytest.raises(NotImplementedError, match="B4"):
-        PT.ShardedTrace.from_sharded_cluster(object())
+    from repro_torch.core import ShardedConfig, make_cluster
+    from repro_torch.sim.workload import Workload, WorkloadDriver
+
+    cl = make_cluster("nezha-sharded", ShardedConfig(groups=2, n_clients=2,
+                                                     device="cpu"))
+    WorkloadDriver(Workload(duration=0.05, drain=0.05, seed=0,
+                            multiop_ratio=0.3)).run(cl)
+    tr = PT.CommitTrace.from_cluster(cl)
+    assert isinstance(tr, PT.ShardedTrace) and len(tr.groups) == 2
+    assert tr.label == "nezha-sharded/sharded/torch-cpu"
+    assert tr.multiops and tr.multiops == {
+        u: {"groups": m["groups"], "deadline": m["deadline"]}
+        for u, m in cl._multi.items()}
+    assert tr.commit_uids.size == cl.summary()["committed"] > 0
+    assert PT.check_cross_group_linearizability(tr) == []
 
 
 # ---------------------------------------------------------------------------
