@@ -46,11 +46,13 @@ Phases (any failure exits non-zero):
      (22 launches of flash_attention per call, all on the tensor-core
      route); the same prefill at B 1,
      S 2048 through the kernel and through its plain version, whose last
-     logits must agree within 2^-5 of the largest logit; the
+     logits must agree within 2^-5 of the largest logit in bf16 (the
+     float32 figure printed beside it); the
      continuous-batching `ServingEngine` (4 slots, max_seq 256) answering
      4 prompts of 32 tokens with 16 new tokens each; and a one-slot engine
      whose decode logits after admitting a prompt must agree with
-     `make_prefill`'s last logits for it, within the same tolerance;
+     `make_prefill`'s last logits for it, within the same tolerance (both
+     types again, bf16 gated);
   7. the SSD-scan kernels against their plain version on the card at
      mamba2-130m's prefill shape (b 2, S 4096, H 24, P 64, N 128, chunk
      128) with x, B, C bf16 and dt float32 as the model calls it
@@ -67,8 +69,8 @@ Phases (any failure exits non-zero):
      after (24 launches of ssd_scan, none of flash_attention), a B 1 x
      S 32768 prefill (wall time, peak memory), kernel vs plain scan
      through the model at B 1 x S 2048, the 4-slot server, and one-slot
-     decode vs prefill; the two comparisons compute in float32 (see
-     `LM_KERNELS`: in bf16 this model's own rounding noise exceeds 2^-5),
+     decode vs prefill; the two comparisons are gated in float32 (see
+     `LM_PATHS`: in bf16 this model's own rounding noise exceeds 2^-5),
      and the bf16 kernel-vs-plain figure is printed beside the bf16
      difference between two exact orders of the plain scan;
   9. the inchash kernel against its plain version on the card, bit for bit,
@@ -125,8 +127,34 @@ Phases (any failure exits non-zero):
      scenarios on the card and the CPU, bit for bit, with no skipped fault,
      only group 1 view-changing in `sharded-group-crash` and the
      cross-group checker silent on `sharded-multi-key`'s card trace.
+ 12. the remaining model families (`repro_torch.models`): flash_attention
+     against its plain version at the shapes their paths give it, bf16
+     (2e-2) and float32 (2e-5), each timed beside its bound, the plain
+     version and `scaled_dot_product_attention` (a window as its mask):
+     phi-3-vision-4.2b's prefill (B 2, S 4096, 32 heads of D 96, causal;
+     the D 96 route), seamless-m4t-large-v2's encoder (B 2, S = Sk 2048,
+     16 heads, non-causal), its decoder's causal self-attention (B 2,
+     S 4096, 16 heads), its cross attention at prefill (S 4096 over
+     Sk 2048) and in a decode step (B 4, S 1 over 2048 frames),
+     hymba-1.5b's windowed prefill (B 2 x 4096, 25/5 heads, window 1024),
+     and dbrx-132b's and arctic-480b's prefills (B 2 x 4096, D 128, 48/8
+     and 56/8 heads: groups of 6 and 7);
+     then hymba-1.5b (all 32 layers), seamless-m4t-large-v2 (24 + 24
+     layers over 2048 random frame embeddings), phi-3-vision-4.2b (32
+     layers, 256 random patch embeddings + 3840 tokens), dbrx-132b (2 of
+     40 layers) and arctic-480b (1 of 35 layers), all at full width,
+     random weights from seed 0, through phase 6's `drive_lm_path`:
+     prefill of B 2 x 4096 positions with every launch count reset just before and
+     read just after (flash_attention once per attention, all on the
+     tensor cores -- seamless 72 -- and hymba's ssd_scan once per layer),
+     kernels vs plain versions through the model at B 1 x 2048 and
+     one-slot decode vs prefill, each in both compute types with one gated
+     (`LM_PATHS`; MoE: also the (token, layer) top-k sets that differ
+     between the runs), and the 4-slot server (seamless: 24
+     cross-attention launches a decode step).
 The last lines are the kernels' JSON record (the DOM records also carry
-phase 10's launches by route and phase 11's batched rows and launches),
+phase 10's launches by route and phase 11's batched rows and launches,
+flash_attention and ssd_scan phase 12's launches and attention rows),
 the nvidia-smi line and {"ok": true, "device": {...}}. The script imports
 nothing of JAX or `repro`.
 
@@ -134,8 +162,9 @@ nothing of JAX or `repro`.
 card half of phase 4 twice -- once to warm, once under `torch.profiler`
 (device time by kernel, device busy share of the wall time) and cProfile
 (where the host time goes) -- and then one prefill and a few serving ticks
-of phases 6 and 8 under `torch.profiler`. Profiling slows the run; the
-plain run's wall times are the ones phases 4, 6 and 8 print.
+of phases 6, 8 and 12's configurations under `torch.profiler`. Profiling
+slows the run; the plain run's wall times are the ones phases 4, 6, 8 and
+12 print.
 """
 from __future__ import annotations
 
@@ -424,14 +453,22 @@ def attention_bound_ms(B, S, Sk, Hq, Hk, D, dtype, causal, window=None,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def sdpa_call(q, k, v, causal: bool):
+def sdpa_call(q, k, v, causal: bool, window=None):
     """One `scaled_dot_product_attention` call on the same inputs, in its
-    [B, H, S, D] layout (the yardstick; the port never calls it)."""
+    [B, H, S, D] layout (the yardstick; the port never calls it). A
+    window goes in as a boolean mask of the visible keys."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import attention_mask
+
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                  is_causal=causal,
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal,
+                                                      enable_gqa=True)
+    mask = attention_mask(q.shape[1], k.shape[1], causal=causal,
+                          window=window, q_offset=0, device=q.device)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
 
 
@@ -474,8 +511,8 @@ def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
         bound, by = attention_bound_ms(B, S, Sk, Hq, Hk, D, dtype, causal,
                                        window, q_offset)
         lib = None
-        if window is None and q_offset == 0 and S == Sk:
-            lib = time_ms(sdpa_call(q, k, v, causal))
+        if q_offset == 0:          # SDPA's causal mask is ours at offset 0
+            lib = time_ms(sdpa_call(q, k, v, causal, window))
         res.update(ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw)),
                    plain_ms=time_ms(
                        lambda: fa.flash_attention_plain(q, k, v, **kw), 5),
@@ -797,18 +834,60 @@ def profile_hash_path(cluster) -> dict:
                               in sorted(host, reverse=True)[:6]}}
 
 
-# The LM paths of phases 6 and 8: each runs every prefill layer through one
-# kernel, whose module is swapped to its plain version for the comparison,
-# and the compute type of the whole-model comparisons (kernel vs plain,
-# one-slot decode vs prefill). tinyllama: the shipping bf16. mamba2-130m:
-# float32. In bf16 two exact float32 orders of its plain scan (chunk 64 and
-# 128) already move its last logits by more than 2^-5 of the largest logit:
-# once two runs differ at all their bf16 roundings part, and 24 random
-# layers carry the model's full bf16 noise, so a bf16 gate at 2^-5 cannot
-# tell a right scan from a wrong one. Phase 8 prints the bf16 kernel-vs-plain
-# figure beside that yardstick.
-LM_KERNELS = {"tinyllama-1.1b": ("flash_attention", "bfloat16"),
-              "mamba2-130m": ("ssd_scan", "float32")}
+# The LM paths at full width, random weights from seed 0: phase 6
+# (tinyllama-1.1b), phase 8 (mamba2-130m) and phase 12 (the remaining
+# families). Per configuration: the layers run (None: all), the kernels its
+# prefill launches (each swapped to its plain version for the comparison),
+# the compute type of the gated whole-model comparisons (kernel vs plain,
+# one-slot decode vs prefill; the other type's figure prints beside it)
+# and the length of one extra B 1 prefill (0: none).
+# - bf16 where the model's own noise stays inside 2^-5: tinyllama-1.1b
+#   (the shipping type), seamless-m4t-large-v2, phi-3-vision-4.2b.
+# - float32 for mamba2-130m: in bf16 two exact float32 orders of its plain
+#   scan (chunk 64 and 128) already move its last logits by more than 2^-5
+#   of the largest logit: once two runs differ at all their bf16 roundings
+#   part, and 24 random layers carry the model's full bf16 noise, so a bf16
+#   gate at 2^-5 cannot tell a right scan from a wrong one. Every path
+#   with ssd_scan prints that chunk-64 yardstick beside its bf16 figure.
+# - float32 for hymba-1.5b, like mamba2-130m (32 layers of an SSM branch
+#   beside attention carry the SSM's bf16 noise).
+# - float32 for the MoE configurations: top-k routing is a step function,
+#   so a token whose k-th and (k+1)-th router probabilities all but tie
+#   takes another expert when its input moves by one bf16 unit, and its
+#   logits move by far more than rounding noise. They also print how many
+#   (token, layer) top-k sets differ between the kernel and plain runs.
+# The MoE configurations run a prefix of their layers at full width: a
+# whole model does not fit one card (dbrx-132b 1.32e11 parameters,
+# arctic-480b 4.77e11; one layer ~3.3e9 = 13 GB and ~1.36e10 = 55 GB in
+# float32).
+LM_PATHS = {
+    "tinyllama-1.1b": (None, ("flash_attention",), "bfloat16", 0),
+    "mamba2-130m": (None, ("ssd_scan",), "float32", 32768),
+    "hymba-1.5b": (None, ("flash_attention", "ssd_scan"), "float32", 0),
+    "seamless-m4t-large-v2": (None, ("flash_attention",), "bfloat16", 0),
+    "phi-3-vision-4.2b": (None, ("flash_attention",), "bfloat16", 0),
+    "dbrx-132b": (2, ("flash_attention",), "float32", 0),
+    "arctic-480b": (1, ("flash_attention",), "float32", 0),
+}
+FAMILIES = ("hymba-1.5b", "seamless-m4t-large-v2", "phi-3-vision-4.2b",
+            "dbrx-132b", "arctic-480b")
+# flash_attention at the shapes phase 12's prefills and decode steps give
+# it: label, B, S, Sk, Hq, Hk, D, causal, window
+FAMILY_ATTENTION = (
+    ("phi-3-vision-4.2b prefill (D 96)", 2, 4096, 4096, 32, 32, 96, True,
+     None),
+    ("seamless-m4t-large-v2 encoder", 2, 2048, 2048, 16, 16, 64, False, None),
+    ("seamless-m4t-large-v2 decoder self-attention", 2, 4096, 4096, 16, 16,
+     64, True, None),
+    ("seamless-m4t-large-v2 cross, prefill", 2, 4096, 2048, 16, 16, 64,
+     False, None),
+    ("seamless-m4t-large-v2 cross, decode step", 4, 1, 2048, 16, 16, 64,
+     False, None),
+    ("hymba-1.5b windowed prefill", 2, 4096, 4096, 25, 5, 64, True, 1024),
+    ("dbrx-132b prefill", 2, 4096, 4096, 48, 8, 128, True, None),
+    ("arctic-480b prefill (groups of 7)", 2, 4096, 4096, 56, 8, 128, True,
+     None),
+)
 
 
 @contextlib.contextmanager
@@ -827,9 +906,54 @@ def compute_dtype(name: str):
         layers.CDT = model.CDT = saved
 
 
-def drive_lm_path(dev, arch: str, long_prompt: int = 0) -> dict:
-    """Phases 6 and 8: one LM at full width on the card. With
-    ``long_prompt``, also one B 1 prefill of that many tokens."""
+def family_batch(cfg, dev, B: int, S: int, rng, gen) -> dict:
+    """A prefill batch of S positions a row: tokens, after 256 patch
+    embeddings for the vision model (S - 256 tokens), or beside the
+    encoder's ``n_frontend_tokens`` frame embeddings (2048) for the
+    encoder-decoder. Embeddings are N(0, 1) from ``gen`` on the card."""
+    import torch
+
+    n_text = S - cfg.n_frontend_tokens if cfg.frontend == "vision" else S
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                    (B, n_text)),
+                                       device=dev)}
+    if cfg.frontend:
+        key = "src" if cfg.enc_dec else "frontend"
+        batch[key] = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                                 generator=gen, device=dev)
+    return batch
+
+
+@contextlib.contextmanager
+def moe_routing():
+    """Records each `moe_ffn` call's sorted top-k expert sets (numpy)."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    seen = []
+    ffn = moe.moe_ffn
+
+    def wrapped(x, p, **kw):
+        _, e = moe.top_k(moe.router(x, p["w_router"])[0], kw["top_k"])
+        seen.append(np.sort(e.cpu().numpy(), -1))
+        return ffn(x, p, **kw)
+
+    moe.moe_ffn = wrapped
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn = ffn
+
+
+def drive_lm_path(dev, name: str) -> dict:
+    """Phases 6, 8 and 12: one configuration of `LM_PATHS` at full width on
+    the card: prefill B 2 x 4096 positions with every count reset just
+    before and read just after (and the extra B 1 prefill, if any); kernels
+    vs plain versions at B 1 x 2048 in both compute types; the 4-slot
+    server; one-slot decode after admission vs prefill in both types."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
@@ -841,117 +965,135 @@ def drive_lm_path(dev, arch: str, long_prompt: int = 0) -> dict:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models.model import (count_params, init_params,
                                           make_prefill)
+    from repro_torch.models.transformer import cross_kv, encoder_forward
     from repro_torch.serving.engine import GenRequest, ServingEngine
 
+    n_layers, kernels, cmp_dtype, long_prompt = LM_PATHS[name]
     mods = {"flash_attention": fa, "ssd_scan": ssd, "dom_admit": admit_mod,
             "dom_release": release_mod, "inchash": inchash_mod}
-    kernel, cmp_dtype = LM_KERNELS[arch]
-    mod = mods[kernel]
-    cfg = get_config(arch)
+    full = get_config(name)
+    cfg = full if n_layers is None else replace(full, n_layers=n_layers)
+    out = {"layers": cfg.n_layers, "of_layers": full.n_layers,
+           "params": count_params(cfg), "full_params": count_params(full),
+           "compare": cmp_dtype}
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    out = {"params": count_params(cfg),
-           "init_s": time.perf_counter() - t0}
+    out["init_s"] = time.perf_counter() - t0
     prefill = make_prefill(cfg)
+    # launches per prefill: attention once per attention block (the
+    # encoder-decoder: encoder, self and cross), the scan once per layer
+    per_layer = {"flash_attention": 3 if cfg.enc_dec else 1, "ssd_scan": 1}
+    want = {k: cfg.n_layers * per_layer[k] if k in kernels else 0
+            for k in mods}
+    routes = {"tensor_core": want["flash_attention"], "scalar": 0}
 
-    # the main path: B 2 x S 4096 prefill, counts reset just before
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)),
-                             device=dev)
-    prefill(params, {"tokens": tokens})              # warm: cuBLAS, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.launches = 0
-    fa.launches_tensor_core = fa.launches_scalar = 0
-    t0 = time.perf_counter()
-    logits, hidden = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    out["prefill_s"] = time.perf_counter() - t0
-    out["launches"] = {name: m.launches for name, m in mods.items()}
-    out["attention_routes"] = {"tensor_core": fa.launches_tensor_core,
-                               "scalar": fa.launches_scalar}
-    if kernel == "flash_attention" and out["attention_routes"] != {
-            "tensor_core": cfg.n_layers, "scalar": 0}:
-        raise RuntimeError(f"the bf16 prefill did not run every layer on the "
-                           f"tensor cores: {out['attention_routes']}")
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if out["launches"][kernel] != cfg.n_layers:
-        raise RuntimeError(f"prefill launched {kernel} "
-                           f"{out['launches'][kernel]} times, not once per "
-                           f"layer ({cfg.n_layers})")
-    others = {k: v for k, v in out["launches"].items() if k != kernel and v}
-    if others:
-        raise RuntimeError(f"{arch}'s prefill launched other kernels: "
-                           f"{others}")
+    def counted(batch) -> tuple:
+        """One prefill with every count reset just before and read just
+        after: logits, hidden, wall s, peak GB, launches, attention by
+        route."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods.values():
+            m.launches = 0
+        fa.launches_tensor_core = fa.launches_scalar = 0
+        t0 = time.perf_counter()
+        logits, hidden = prefill(params, batch)
+        torch.cuda.synchronize()
+        return (logits, hidden, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9,
+                {k: m.launches for k, m in mods.items()},
+                {"tensor_core": fa.launches_tensor_core,
+                 "scalar": fa.launches_scalar})
+
+    # the main path: B 2 x 4096 positions
+    batch = family_batch(cfg, dev, 2, 4096, rng, gen)
+    prefill(params, batch)                           # warm: cuBLAS, allocator
+    (logits, hidden, out["prefill_s"], out["peak_gb"], out["launches"],
+     out["attention_routes"]) = counted(batch)
+    if out["launches"] != want or out["attention_routes"] != routes:
+        raise RuntimeError(f"{name}'s prefill launched "
+                           f"{out['launches']} (attention by route "
+                           f"{out['attention_routes']}), not {want} with "
+                           f"all attention on the tensor cores")
     if not (logits.shape == (2, cfg.vocab) and hidden.shape ==
             (2, 4096, cfg.d_model) and torch.isfinite(logits).all()
             and torch.isfinite(hidden).all()):
-        raise RuntimeError("prefill output has the wrong shape or is not "
-                           "finite")
-    del logits, hidden
+        raise RuntimeError(f"{name}'s prefill output has the wrong shape or "
+                           f"is not finite")
+    del logits, hidden, batch
 
     if long_prompt:
-        long = torch.as_tensor(rng.integers(0, cfg.vocab, (1, long_prompt)),
-                               device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = mod.launches
-        t0 = time.perf_counter()
-        logits, hidden = prefill(params, {"tokens": long})
-        torch.cuda.synchronize()
-        out["long"] = {"tokens": long_prompt,
-                       "prefill_s": time.perf_counter() - t0,
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                       "launches": mod.launches - before}
-        if not (out["long"]["launches"] == cfg.n_layers
+        long = family_batch(cfg, dev, 1, long_prompt, rng, gen)
+        logits, hidden, wall, peak, launched, by_route = counted(long)
+        out["long"] = {"tokens": long_prompt, "prefill_s": wall,
+                       "peak_gb": peak, "launches": launched}
+        if not (launched == want and by_route == routes
                 and torch.isfinite(logits).all()
                 and torch.isfinite(hidden).all()):
-            raise RuntimeError(f"the S {long_prompt} prefill is not finite "
-                               f"or skipped the kernel")
+            raise RuntimeError(f"{name}'s S {long_prompt} prefill is not "
+                               f"finite or launched {launched}, not {want}")
         del logits, hidden, long
         torch.cuda.empty_cache()
 
-    # kernel vs plain version through the whole model (B 1, S 2048)
-    short = tokens[:1, :2048]
-    cuda_fn = getattr(mod, f"{kernel}_cuda")
+    # kernel vs plain versions through the model (B 1 x 2048), both types
+    short = family_batch(cfg, dev, 1, 2048, rng, gen)
 
-    def last_logits(fn):
-        setattr(mod, f"{kernel}_cuda", fn)
+    def last_logits(plain: bool, chunk=None):
+        """Last logits with the kernels, or with their plain versions
+        (the plain scan at ``chunk`` in place of the config's, if given)."""
+        saved = {k: getattr(mods[k], f"{k}_cuda") for k in kernels}
+        if plain:
+            for k in kernels:
+                setattr(mods[k], f"{k}_cuda", getattr(mods[k], f"{k}_plain"))
+            if chunk:
+                setattr(ssd, "ssd_scan_cuda", lambda *a, chunk: (
+                    ssd.ssd_scan_plain(*a, chunk=64)))
         try:
-            return prefill(params, {"tokens": short})[0].float()
+            return prefill(params, short)[0].float()
         finally:
-            setattr(mod, f"{kernel}_cuda", cuda_fn)
+            for k, fn in saved.items():
+                setattr(mods[k], f"{k}_cuda", fn)
 
-    plain_fn = getattr(mod, f"{kernel}_plain")
-    with compute_dtype(cmp_dtype):
-        kern, plain = last_logits(cuda_fn), last_logits(plain_fn)
-    scale = float(plain.abs().max().cpu())
-    err = float((kern - plain).abs().max().cpu())
-    out["prefill_vs_plain"] = {"compute": cmp_dtype, "max_abs_err": err,
-                               "max_abs_logit": scale,
-                               "tol": scale * LM_REL_TOL}
-    if not err <= scale * LM_REL_TOL:
-        raise RuntimeError(f"prefill through the kernel disagrees with the "
-                           f"plain-{kernel} prefill ({cmp_dtype}): {err} > "
-                           f"{scale * LM_REL_TOL}")
-    if kernel == "ssd_scan":
-        # the shipping bf16, beside two exact float32 orders of the plain
-        # scan (chunk 64 against the config's chunk)
-        kern, plain = last_logits(cuda_fn), last_logits(plain_fn)
-        other = last_logits(lambda *a, chunk: plain_fn(*a, chunk=64))
-        out["prefill_vs_plain_bf16"] = {
-            "max_abs_err": float((kern - plain).abs().max().cpu()),
-            "max_abs_logit": float(plain.abs().max().cpu()),
-            "plain_chunk64_vs_plain": float((other - plain).abs().max()
-                                            .cpu())}
-    del kern, plain
+    out["prefill_vs_plain"] = {}
+    for dtype in ("bfloat16", "float32"):
+        with compute_dtype(dtype), moe_routing() as sets:
+            kern, plain = last_logits(False), last_logits(True)
+        res = {"max_abs_err": float((kern - plain).abs().max().cpu()),
+               "max_abs_logit": float(plain.abs().max().cpu())}
+        if cfg.family == "moe":
+            half = len(sets) // 2
+            res["topk_sets_differing"] = int(sum(
+                (a != b).any(-1).sum() for a, b in zip(sets[:half],
+                                                       sets[half:])))
+        if dtype == "bfloat16" and "ssd_scan" in kernels:
+            # two exact float32 orders of the plain scan, chunk 64 against
+            # the config's chunk: the bf16 yardstick
+            with compute_dtype(dtype):
+                other = last_logits(True, chunk=64)
+            res["plain_chunk64_vs_plain"] = float(
+                (other - plain).abs().max().cpu())
+            del other
+        out["prefill_vs_plain"][dtype] = res
+        del kern, plain
+    gate = out["prefill_vs_plain"][cmp_dtype]
+    gate["tol"] = gate["max_abs_logit"] * LM_REL_TOL
+    if not (gate["max_abs_err"] <= gate["tol"]
+            and gate.get("topk_sets_differing", 0) == 0):
+        raise RuntimeError(f"{name}: prefill through the kernels disagrees "
+                           f"with the plain prefill ({cmp_dtype}): {gate}")
+    del short
+    torch.cuda.empty_cache()
 
     # the continuous-batching server: 4 prompts of 32 tokens, 16 new each
     prompts = [rng.integers(0, cfg.vocab, 32).tolist() for _ in range(4)]
     engine = ServingEngine(cfg, params, n_slots=4, max_seq=256)
     torch.cuda.synchronize()
+    fa.launches = 0
     t0 = time.perf_counter()
     for i, prompt in enumerate(prompts):
         if not engine.admit(GenRequest(seq_id=i, prompt=prompt, max_new=16)):
@@ -962,41 +1104,114 @@ def drive_lm_path(dev, arch: str, long_prompt: int = 0) -> dict:
         produced += engine.tick()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    steps = 4 * 32 + produced
     answers = [engine.requests[i].out for i in range(4)]
     if not all(len(a) == 16 and all(0 <= t < cfg.vocab for t in a)
                for a in answers):
         raise RuntimeError(f"the engine's answers are malformed: {answers}")
-    out["serve"] = {"wall_s": wall, "admit_s": t_admit,
-                    "decode_steps": 4 * 32 + produced, "tokens": produced,
-                    "tokens_per_s": produced / wall,
+    # seamless: each decode step's cross-attention is one launch a layer
+    if fa.launches != steps * cfg.n_layers * int(cfg.enc_dec):
+        raise RuntimeError(f"serving launched flash_attention {fa.launches} "
+                           f"times over {steps} decode steps")
+    out["serve"] = {"wall_s": wall, "admit_s": t_admit, "decode_steps": steps,
+                    "tokens": produced, "tokens_per_s": produced / wall,
                     "decode_tokens_per_s": produced / (wall - t_admit),
-                    "answers": answers}
+                    "attention_launches": fa.launches, "answers": answers}
+    del engine
+    torch.cuda.empty_cache()
 
     # a one-slot engine's decode logits after admitting prompt 0 ==
-    # make_prefill's last logits for it (one slot: no cache overwrite)
-    with compute_dtype(cmp_dtype):
-        one = ServingEngine(cfg, params, n_slots=1, max_seq=256)
-        seen = []
-        decode = one.decode
+    # make_prefill's last logits for it (one slot: no cache overwrite).
+    # MoE: prefill with a capacity that holds every assignment (prefill
+    # drops past capacity, a decode step never does); seamless: the
+    # engine's cross cache set to the cross K/V of prefill's frames; the
+    # vision model: text only, as its decode step is
+    one = {"tokens": torch.as_tensor([prompts[0]], device=dev)}
+    if cfg.enc_dec:
+        one["src"] = torch.randn((1, cfg.n_frontend_tokens, cfg.d_model),
+                                 generator=gen, device=dev)
+    pcfg = cfg if cfg.family != "moe" else replace(
+        cfg, capacity_factor=2.0 * cfg.n_experts)
+    out["decode_vs_prefill"] = {}
+    for dtype in ("bfloat16", "float32"):
+        with compute_dtype(dtype):
+            last, _ = make_prefill(pcfg)(params, one)
+            engine = ServingEngine(cfg, params, n_slots=1, max_seq=256)
+            if cfg.enc_dec:
+                engine.cache["cross"] = cross_kv(
+                    params, encoder_forward(params, one["src"], cfg), cfg)
+            seen, decode = [], engine.decode
 
-        def recording(*args):
-            step_logits, cache = decode(*args)
-            seen.append(step_logits)
-            return step_logits, cache
+            def recording(*args):
+                step_logits, cache = decode(*args)
+                seen.append(step_logits)
+                return step_logits, cache
 
-        one.decode = recording
-        one.admit(GenRequest(seq_id=0, prompt=prompts[0], max_new=1))
-        last, _ = prefill(params, {"tokens": torch.as_tensor([prompts[0]],
-                                                             device=dev)})
-    scale = float(last.float().abs().max().cpu())
-    err = float((seen[-1][0].float() - last[0].float()).abs().max().cpu())
-    out["decode_vs_prefill"] = {"compute": cmp_dtype, "max_abs_err": err,
-                                "max_abs_logit": scale,
-                                "tol": scale * LM_REL_TOL}
-    if not err <= scale * LM_REL_TOL:
-        raise RuntimeError(f"one-slot decode logits disagree with "
-                           f"make_prefill's: {err} > {scale * LM_REL_TOL}")
+            engine.decode = recording
+            engine.admit(GenRequest(seq_id=0, prompt=prompts[0], max_new=1))
+        out["decode_vs_prefill"][dtype] = {
+            "max_abs_err": float((seen[-1][0].float() - last[0].float())
+                                 .abs().max().cpu()),
+            "max_abs_logit": float(last.float().abs().max().cpu())}
+        del engine, seen
+    gate = out["decode_vs_prefill"][cmp_dtype]
+    gate["tol"] = gate["max_abs_logit"] * LM_REL_TOL
+    if not gate["max_abs_err"] <= gate["tol"]:
+        raise RuntimeError(f"{name}: one-slot decode logits disagree with "
+                           f"make_prefill's ({cmp_dtype}): {gate}")
+    del params
+    torch.cuda.empty_cache()
     return out
+
+
+def lm_lines(name: str, r: dict) -> list:
+    """The printed lines of one `drive_lm_path` run."""
+    other = "float32" if r["compare"] == "bfloat16" else "bfloat16"
+    lines = [f"{name} ({r['params']} parameters, {r['layers']} of "
+             f"{r['of_layers']} layers; init {r['init_s']:.2f} s): prefill "
+             f"B2 x S4096 {r['prefill_s']:.4f} s "
+             f"({2 * 4096 / r['prefill_s']:.0f} tokens/s), launches {json.dumps(r['launches'])} "
+             f"(flash_attention by route {json.dumps(r['attention_routes'])}),"
+             f" peak {r['peak_gb']:.2f} GB"]
+    if r["layers"] != r["of_layers"]:
+        lines.append(f"  reduced: n_layers {r['of_layers']} -> {r['layers']}"
+                     f" at full width ({r['full_params']} parameters in all "
+                     f"do not fit one card)")
+    if "long" in r:
+        lg = r["long"]
+        lines.append(f"  prefill B1 x S{lg['tokens']}: {lg['prefill_s']:.4f}"
+                     f" s ({lg['tokens'] / lg['prefill_s']:.0f} tokens/s), "
+                     f"launches {json.dumps(lg['launches'])}, peak "
+                     f"{lg['peak_gb']:.2f} GB")
+    for key, label in (("prefill_vs_plain", "prefill B1 x S2048, kernels vs "
+                        "plain versions"),
+                       ("decode_vs_prefill", "one-slot decode after "
+                        "admitting a 32-token prompt vs make_prefill")):
+        g, o = r[key][r["compare"]], r[key][other]
+        line = (f"  {label}, {r['compare']} compute (the gate): last logits "
+                f"max abs err {g['max_abs_err']:.4g} (largest "
+                f"{g['max_abs_logit']:.4g}, tolerance {g['tol']:.4g}); "
+                f"{other}: {o['max_abs_err']:.4g} (largest "
+                f"{o['max_abs_logit']:.4g})")
+        if "topk_sets_differing" in g:
+            line += (f"; (token, layer) top-k sets differing between the "
+                     f"runs: {r['compare']} {g['topk_sets_differing']}, "
+                     f"{other} {o['topk_sets_differing']}")
+        bf = r[key]["bfloat16"]
+        if "plain_chunk64_vs_plain" in bf:
+            line += (f"; in bf16 the plain scan at chunk 64 vs the config's "
+                     f"chunk differs by {bf['plain_chunk64_vs_plain']:.4g}")
+        lines.append(line)
+    sv = r["serve"]
+    lines.append(
+        f"  ServingEngine(n_slots=4, max_seq=256): 4 prompts x 32 tokens, "
+        f"{sv['tokens']} new tokens in {sv['wall_s']:.3f} s "
+        f"({sv['tokens_per_s']:.2f} tokens/s; {sv['decode_steps']} decode "
+        f"steps, admission {sv['admit_s']:.3f} s, decode ticks "
+        f"{sv['decode_tokens_per_s']:.2f} tokens/s; flash_attention "
+        f"launches {sv['attention_launches']}); first answer "
+        f"{sv['answers'][0]}")
+    return lines
 
 
 def drive_main_path(device: str, rate: float, duration: float):
@@ -1048,10 +1263,14 @@ def profile_main_path(rate: float, duration: float) -> None:
     print(out.getvalue())
 
 
-def profile_lm_path(dev, arch: str) -> None:
-    """Where an LM path's card time goes: one B 2 x S 4096 prefill and
+def profile_lm_path(dev, arch: str, n_layers=None) -> None:
+    """Where an LM path's card time goes: one B 2 x 4096-position prefill
+    (phase 12's batch: frames or patches where the config takes them) and
     eight decode steps of a 4-slot engine, each under torch.profiler after
-    a warm run (device time by kernel, device busy share of the wall)."""
+    a warm run (device time by kernel, device busy share of the wall).
+    ``n_layers`` cuts the depth, as phase 12 does for the MoE configs."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1061,16 +1280,19 @@ def profile_lm_path(dev, arch: str) -> None:
     from repro_torch.serving.engine import GenRequest, ServingEngine
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers)
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
     params = init_params(cfg, seed=0, device=dev)
     prefill = make_prefill(cfg)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4096)),
-                             device=dev)
+    batch = family_batch(cfg, dev, 2, 4096, rng, gen)
     engine = ServingEngine(cfg, params, n_slots=4, max_seq=256)
     for i in range(4):
         engine.admit(GenRequest(seq_id=i, max_new=64,
                                 prompt=rng.integers(0, cfg.vocab, 8).tolist()))
-    runs = (("prefill B2 x S4096", lambda: prefill(params, {"tokens": tokens})),
+    runs = (("prefill B2 x S4096", lambda: prefill(params, batch)),
             ("2 decode ticks x 4 slots (8 decode steps)",
              lambda: [engine.tick() for _ in range(2)]))
     for label, fn in runs:
@@ -1756,8 +1978,8 @@ def main() -> int:
     rate, duration = 1e6, 0.2
     if args.profile:
         profile_main_path(rate, duration)
-        for arch in LM_KERNELS:
-            profile_lm_path(dev, arch)
+        for arch, (n_layers, *_) in LM_PATHS.items():
+            profile_lm_path(dev, arch, n_layers)
         return 0
 
     # -- 3. kernels vs plain versions ------------------------------------------
@@ -1868,24 +2090,8 @@ def main() -> int:
 
     # -- 6. the LM path at full width ----------------------------------------
     lm = drive_lm_path(dev, "tinyllama-1.1b")
-    print(f"tinyllama-1.1b ({lm['params']} parameters, init "
-          f"{lm['init_s']:.2f} s): prefill B2 x S4096 {lm['prefill_s']:.4f} s "
-          f"({2 * 4096 / lm['prefill_s']:.0f} tokens/s), launches "
-          f"{json.dumps(lm['launches'])} (flash_attention by route "
-          f"{json.dumps(lm['attention_routes'])}), peak "
-          f"{lm['peak_gb']:.2f} GB")
-    pv, dv, sv = lm["prefill_vs_plain"], lm["decode_vs_prefill"], lm["serve"]
-    print(f"  prefill B1 x S2048, kernel vs plain attention: last logits "
-          f"max abs err {pv['max_abs_err']:.4g} (largest logit "
-          f"{pv['max_abs_logit']:.4g}, tolerance {pv['tol']:.4g})")
-    print(f"  ServingEngine(n_slots=4, max_seq=256): 4 prompts x 32 tokens, "
-          f"{sv['tokens']} new tokens in {sv['wall_s']:.3f} s "
-          f"({sv['tokens_per_s']:.2f} tokens/s; {sv['decode_steps']} decode "
-          f"steps, admission {sv['admit_s']:.3f} s, decode ticks "
-          f"{sv['decode_tokens_per_s']:.2f} tokens/s); first answer "
-          f"{sv['answers'][0]}")
-    print(f"  one-slot decode after admission vs make_prefill: last logits "
-          f"max abs err {dv['max_abs_err']:.4g} (tolerance {dv['tol']:.4g})")
+    for line in lm_lines("tinyllama-1.1b", lm):
+        print(line)
 
     # -- 7. the SSD scan vs its plain version ---------------------------------
     print("ssd_scan (kernel vs plain on the card):")
@@ -1915,32 +2121,9 @@ def main() -> int:
               f"({r['bound_by']}), share of bound {r['bound_share']:.4f}")
 
     # -- 8. the SSM path at full width ---------------------------------------
-    sm = drive_lm_path(dev, "mamba2-130m", long_prompt=32768)
-    print(f"mamba2-130m ({sm['params']} parameters, init "
-          f"{sm['init_s']:.2f} s): prefill B2 x S4096 {sm['prefill_s']:.4f} s "
-          f"({2 * 4096 / sm['prefill_s']:.0f} tokens/s), launches "
-          f"{json.dumps(sm['launches'])}, peak {sm['peak_gb']:.2f} GB")
-    lg = sm["long"]
-    print(f"  prefill B1 x S{lg['tokens']}: {lg['prefill_s']:.4f} s "
-          f"({lg['tokens'] / lg['prefill_s']:.0f} tokens/s), "
-          f"{lg['launches']} launches, peak {lg['peak_gb']:.2f} GB")
-    pv, dv, sv = sm["prefill_vs_plain"], sm["decode_vs_prefill"], sm["serve"]
-    bv = sm["prefill_vs_plain_bf16"]
-    print(f"  prefill B1 x S2048, kernel vs plain scan, float32 compute: "
-          f"last logits max abs err {pv['max_abs_err']:.4g} (largest logit "
-          f"{pv['max_abs_logit']:.4g}, tolerance {pv['tol']:.4g}); in bf16 "
-          f"{bv['max_abs_err']:.4g} (largest {bv['max_abs_logit']:.4g}), "
-          f"where the plain scan at chunk 64 vs 128 differs by "
-          f"{bv['plain_chunk64_vs_plain']:.4g}")
-    print(f"  ServingEngine(n_slots=4, max_seq=256): 4 prompts x 32 tokens, "
-          f"{sv['tokens']} new tokens in {sv['wall_s']:.3f} s "
-          f"({sv['tokens_per_s']:.2f} tokens/s; {sv['decode_steps']} decode "
-          f"steps, admission {sv['admit_s']:.3f} s, decode ticks "
-          f"{sv['decode_tokens_per_s']:.2f} tokens/s); first answer "
-          f"{sv['answers'][0]}")
-    print(f"  one-slot decode after admission vs make_prefill, float32 "
-          f"compute: last logits max abs err {dv['max_abs_err']:.4g} "
-          f"(tolerance {dv['tol']:.4g})")
+    sm = drive_lm_path(dev, "mamba2-130m")
+    for line in lm_lines("mamba2-130m", sm):
+        print(line)
 
     # -- 9. the inchash kernel and the hash path --------------------------------
     from repro_torch.kernels import inchash as inchash_mod
@@ -2046,6 +2229,25 @@ def main() -> int:
     # -- 11. nezha-sharded: batched DOM kernels, the deployment, scenarios --
     shard = drive_sharded(dev)
 
+    # -- 12. the remaining model families at full width -----------------------
+    print("flash_attention at phase 12's shapes (kernel vs plain, card):")
+    fam_rows = []
+    for label, B, S, Sk, Hq, Hk, D, causal, window in FAMILY_ATTENTION:
+        for dtype in ("bfloat16", "float32"):
+            r = check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal,
+                                window, timed=True)
+            r["label"] = label
+            fam_rows.append(r)
+            print(f"  {label}: {r['shape']}: err {r['max_abs_err']:.3g}, "
+                  f"{attention_line(r)}")
+    families = {}
+    for name in FAMILIES:
+        t_fam = time.perf_counter()
+        families[name] = drive_lm_path(dev, name)
+        for line in lm_lines(name, families[name]):
+            print(line)
+        print(f"  ({time.perf_counter() - t_fam:.1f} s for {name})")
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -2110,7 +2312,15 @@ def main() -> int:
             "library_ms")},
         "prefill_32k": {k: p32k[k] for k in (
             "ms", "library_ms", "bound_ms", "tflops",
-            "tail_max_abs_err")}})
+            "tail_max_abs_err")},
+        "families": {name: {"prefill_launches": r["launches"][
+            "flash_attention"], "by_route": r["attention_routes"],
+            "serving_launches": r["serve"]["attention_launches"]}
+            for name, r in families.items()},
+        "family_shapes": [{k: r.get(k) for k in (
+            "label", "shape", "route", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "scalar_ms", "tflops")}
+            for r in fam_rows]})
     r = ssd_main["bfloat16"]
     ssd_keys = ("max_abs_err", "state_max_abs_err", "ms", "graph_ms",
                 "plain_ms", "bound_ms", "bound_by")
@@ -2125,7 +2335,9 @@ def main() -> int:
         "state_max_abs_err": r["state_max_abs_err"],
         "graph_ms": r["graph_ms"],
         "float32": {k: ssd_main["float32"][k] for k in ssd_keys},
-        "prefill_32k": {k: ssd_32k[k] for k in ssd_keys}})
+        "prefill_32k": {k: ssd_32k[k] for k in ssd_keys},
+        "families": {name: r["launches"]["ssd_scan"]
+                     for name, r in families.items()}})
     record["kernels"].append({
         "name": "inchash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/inchash.cu",

@@ -2,9 +2,7 @@
 
 Port of `repro/configs/__init__.py`. `get_config(name)` returns the full
 published config; `smoke_config(name)` returns a reduced same-family config
-for CPU smoke tests. The port's model runs the `dense` family without a
-window, an encoder or a frontend (tinyllama-1.1b, qwen2-7b, ...); the other
-configs are carried as data, and `repro_torch.models` refuses them.
+for CPU smoke tests. `repro_torch.models` runs every config.
 """
 from __future__ import annotations
 

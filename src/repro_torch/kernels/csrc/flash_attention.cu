@@ -18,7 +18,7 @@
 // 0.139 ms).
 //
 // Two routes, chosen by the wrapper from the inputs' type:
-// - bf16, D 64 or 128: the tensor-core kernel of flash_attention_sm90.cuh.
+// - bf16, D 64, 96 or 128: the tensor-core kernel of flash_attention_sm90.cuh.
 //   Only `wgmma` reaches the bf16 rate, so both products run on it from
 //   shared memory that TMA fills asynchronously through a ring of K/V
 //   stages, while two or three consumer warpgroups compute and take turns
@@ -43,8 +43,10 @@
 // only, staging each 64-key K tile (transposed) and V tile as float32.
 // Thread (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 of the tile, key
 // columns 4tx..4tx+3 of S, and output columns 4tx.. (+64) of the
-// accumulator; row max and sum reduce over the 16 threads of a half-warp
-// with shuffles. Ragged S and Sk are masked in the kernel (no padding).
+// accumulator (at D 96 the second group of 64 columns is half full: its
+// threads past column 96 idle); row max and sum reduce over the 16 threads
+// of a half-warp with shuffles. Ragged S and Sk are masked in the kernel
+// (no padding).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,8 +67,8 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* dst) {
 }
 
 // Loads 8 consecutive elements (16 bytes for bf16, two float4 for float32)
-// of a row into float32. `p` is 16-byte aligned: rows are D (64 or 128)
-// elements long and tensors start on allocator boundaries.
+// of a row into float32. `p` is 16-byte aligned: rows are D (64, 96 or
+// 128) elements long and tensors start on allocator boundaries.
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -126,7 +128,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int S,
                        int Sk, int Hq, int Hk, int causal, int window,
                        int q_offset, float scale) {
-  constexpr int DC = D / 64;                       // output column groups
+  constexpr int DC = (D + 63) / 64;                // output column groups
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* Qt = smem;                                // [D][BQ + PAD]
@@ -242,6 +244,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
 #pragma unroll
       for (int dc = 0; dc < DC; ++dc) {
+        if (D % 64 != 0 && 64 * dc + 4 * tx >= D) continue;
         const float4 va = *reinterpret_cast<const float4*>(
             &Vs[c * (D + PAD) + 64 * dc + 4 * tx]);
         const float vv[4] = {va.x, va.y, va.z, va.w};
@@ -261,10 +264,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     T* orow = ob + static_cast<int64_t>(row) * q_stride;
 #pragma unroll
-    for (int dc = 0; dc < DC; ++dc)
+    for (int dc = 0; dc < DC; ++dc) {
+      if (D % 64 != 0 && 64 * dc + 4 * tx >= D) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         from_f32(acc[i][4 * dc + j] * inv, &orow[64 * dc + 4 * tx + j]);
+    }
   }
 }
 
@@ -312,11 +317,17 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
                              q_offset, scale, st);
+  if (dtype == 0 && D == 96)
+    return launch<float, 96>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
+                             q_offset, scale, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
                               q_offset, scale, st);
   if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
+                                     window, q_offset, scale, st);
+  if (dtype == 1 && D == 96)
+    return launch<__nv_bfloat16, 96>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
                                      window, q_offset, scale, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
@@ -328,6 +339,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // another D).
 int flash_attention_tc_smem_bytes(int D) {
   if (D == 64) return fa_tc::smem_bytes<64>();
+  if (D == 96) return fa_tc::smem_bytes<96>();
   if (D == 128) return fa_tc::smem_bytes<128>();
   return 0;
 }
@@ -349,6 +361,9 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64)
     return fa_tc::launch<64>(q, k, v, out, q_map, kv_map, causal, window,
+                             q_offset, scale, st);
+  if (D == 96)
+    return fa_tc::launch<96>(q, k, v, out, q_map, kv_map, causal, window,
                              q_offset, scale, st);
   if (D == 128)
     return fa_tc::launch<128>(q, k, v, out, q_map, kv_map, causal, window,

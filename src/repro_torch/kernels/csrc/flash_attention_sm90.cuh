@@ -9,6 +9,12 @@
 // 128-byte rows with the 128-byte swizzle, one "atom" of 64 bf16 columns
 // at a time (D 128 is two atoms side by side): the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B and the one the wgmma descriptors name.
+// D 96 is one and a half atoms. It is stored as two (DP = 128 columns):
+// the second box of a row reaches past the tensor's 96 columns, and TMA
+// fills columns 96-127 with zeros. S = Q K^T takes only the 6 steps of 16
+// columns that hold data; O += P V runs at N = 128 on the zero-padded V
+// (its last 32 columns come out 0) and only 96 columns are stored. So the
+// route is exact, at a third more P V work than D 96 needs.
 //
 // Per KV tile and warpgroup:
 //   S = Q K^T    wgmma m64nBKk16, A = Q and B = K from shared memory,
@@ -17,7 +23,7 @@
 //                applied to S, row max and sum over the 4 threads of a quad,
 //                masks only on tiles that cross the causal diagonal, the
 //                window's edge or Sk;
-//   O += P V     wgmma m64nDk16, A = P from registers (the S accumulator's
+//   O += P V     wgmma m64nDPk16, A = P from registers (the S accumulator's
 //                layout is the A fragment's once rounded to bf16 pairs),
 //                B = V from shared memory, MN-major (transpose bit),
 //                BK/16 steps.
@@ -51,16 +57,24 @@ constexpr int PRODUCER_REGS = 24;        // registers a producer thread keeps
 // consumers with 240 registers hold S, P and O of 128-key tiles. Shared
 // memory: 24 KB of Q and a 4-stage ring of 32 KB K/V tiles at D 64 (152
 // KB), 32 KB of Q and a 3-stage ring of 64 KB at D 128 (224 KB of the 227
-// KB a block may use).
+// KB a block may use). D 96 is stored, multiplied and held as D 128 (DP,
+// the padded width), so it takes D 128's tiles and budgets.
 template <int D_>
 struct Config;
 template <>
 struct Config<64> {
-  static constexpr int D = 64, BK = 128, STAGES = 4, NWG = 3, REGS = 160;
+  static constexpr int D = 64, DP = 64, BK = 128, STAGES = 4, NWG = 3,
+                       REGS = 160;
+};
+template <>
+struct Config<96> {
+  static constexpr int D = 96, DP = 128, BK = 128, STAGES = 3, NWG = 2,
+                       REGS = 240;
 };
 template <>
 struct Config<128> {
-  static constexpr int D = 128, BK = 128, STAGES = 3, NWG = 2, REGS = 240;
+  static constexpr int D = 128, DP = 128, BK = 128, STAGES = 3, NWG = 2,
+                       REGS = 240;
 };
 
 // ---------------------------------------------------------------------------
@@ -396,14 +410,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Shared memory of one block, from a 1024-byte aligned base (the swizzle's
 // period): the Q tile as (warpgroup, atom) blocks of 64 rows, then STAGES K
 // tiles, STAGES V tiles (each DC atoms of BK rows), then the mbarriers
-// full[STAGES], empty[STAGES] and q.
+// full[STAGES], empty[STAGES] and q. Rows are DP columns wide.
 template <class C>
 struct Smem {
-  static constexpr int DC = C::D / ATOM;                     // atoms a row
+  static constexpr int DC = C::DP / ATOM;                    // atoms a row
   static constexpr int Q_ATOM = WG_ROWS * ATOM_ROW_BYTES;    // 8 KB
   static constexpr int KV_ATOM = C::BK * ATOM_ROW_BYTES;     // 16 KB
-  static constexpr int Q_BYTES = C::NWG * WG_ROWS * C::D * 2;
-  static constexpr int KV_BYTES = C::BK * C::D * 2;          // one K or V tile
+  static constexpr int Q_BYTES = C::NWG * WG_ROWS * C::DP * 2;
+  static constexpr int KV_BYTES = C::BK * C::DP * 2;         // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + C::STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + C::STAGES * KV_BYTES;
@@ -423,7 +437,8 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
              __nv_bfloat16* __restrict__ out, int S, int Sk, int Hq, int Hk,
              int BH, int causal, int window, int q_offset, float scale_log2) {
   using L = Smem<C>;
-  constexpr int D = C::D, BK = C::BK, STAGES = C::STAGES, NWG = C::NWG;
+  constexpr int D = C::D, DP = C::DP, BK = C::BK, STAGES = C::STAGES,
+                NWG = C::NWG;
   constexpr int BQ = NWG * WG_ROWS, CONSUMERS = NWG * 128;
   constexpr int DC = L::DC;
   extern __shared__ uint8_t smem_raw[];
@@ -466,7 +481,9 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS) {
       // a warpgroup whose 64 rows all lie before row 0 gets no Q (its rows
-      // are never stored); rows before 0 in a loaded box read zeros
+      // are never stored); rows before 0 in a loaded box read zeros, and so
+      // do columns past D (D 96's second atom): the transaction counts the
+      // whole box either way
       const int w0 = q0 < 0 ? -q0 / WG_ROWS : 0;
       mbar_expect_tx(q_bar, (NWG - w0) * L::Q_ATOM * DC);
       for (int w = w0; w < NWG; ++w)
@@ -507,10 +524,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg_last = wg_first + WG_ROWS - 1;
 
   float s[BK / 2];       // S tile: rows r / r + 8, BK / 4 columns each
-  float o[D / 2];        // output accumulator, same layout over D columns
+  float o[DP / 2];       // output accumulator, same layout over DP columns
   uint32_t p[BK / 4];    // P as bf16 pairs: the A fragments of O += P V
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m0 = -1e30f, m1 = -1e30f;   // running max, log2 units
   float l0 = 0.f, l1 = 0.f;         // this thread's share of the row sums
 
@@ -520,7 +537,8 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
   auto empty = [&](int st) { return bars + 8u * (STAGES + st); };
 
   // S = Q K^T of the tile in stage st: K-major operands, 16 columns of D a
-  // step (32 bytes inside a 128-byte atom row, the next atom every 4)
+  // step (32 bytes inside a 128-byte atom row, the next atom every 4); the
+  // zero columns past D are not read
   auto issue_s = [&](int st) {
     const uint32_t ks = k_s + st * L::KV_BYTES;
 #pragma unroll
@@ -533,12 +551,12 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_commit();
   };
   // O += P V of the tile in stage st: V MN-major (D contiguous), 16 keys a
-  // step = 16 rows of 128 bytes; D 128's second atom lies KV_ATOM further
+  // step = 16 rows of 128 bytes; DP 128's second atom lies KV_ATOM further
   auto issue_pv = [&](int st) {
     const uint32_t vs = v_s + st * L::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<D>(o, p + 4 * kk,
+      wgmma_rs<DP>(o, p + 4 * kk,
                   sw128_desc(vs + kk * 16 * ATOM_ROW_BYTES, L::KV_ATOM, 1024));
     wgmma_commit();
   };
@@ -629,7 +647,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int st = i % STAGES;
     const int prev = (i - 1) % STAGES;
     mbar_wait(full(st), (i / STAGES) & 1);
-    fence_regs<D / 2>(o);
+    fence_regs<DP / 2>(o);
     fence_regs<BK / 4>(p);
     my_turn();
     wgmma_fence();
@@ -640,7 +658,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs<BK / 2>(s);
     softmax((kt_lo + i) * BK, corr0, corr1);
     wgmma_wait<0>();                  // O += P V of tile i - 1 is in
-    fence_regs<D / 2>(o);
+    fence_regs<DP / 2>(o);
     fence_regs<BK / 4>(p);
     mbar_arrive(empty(prev));
 #pragma unroll
@@ -654,14 +672,14 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
   if (n_kt > 0) {
     const int last = (n_kt - 1) % STAGES;
-    fence_regs<D / 2>(o);
+    fence_regs<DP / 2>(o);
     fence_regs<BK / 4>(p);
     my_turn();
     wgmma_fence();
     issue_pv(last);
     your_turn();
     wgmma_wait<0>();
-    fence_regs<D / 2>(o);
+    fence_regs<DP / 2>(o);
     fence_regs<BK / 4>(p);
     mbar_arrive(empty(last));
   }

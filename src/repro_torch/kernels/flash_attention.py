@@ -19,7 +19,8 @@ So a CUDA call takes one of two kernels (``kernel_route``):
   turns to run both products with ``wgmma``, and the online softmax stays
   in registers on the float32 accumulator; the block walks only the KV
   tiles of the causal/window band. P enters the second product rounded
-  to bf16.
+  to bf16. D 96 (phi-3-vision) runs as D 128 with zero columns: TMA
+  fills the padding, and only 96 columns are stored.
 - float32 keeps the scalar kernel (``csrc/flash_attention.cu``), float32
   FMAs at 67 TFLOP/s peak: the tensor cores take float32 only as TF32,
   which breaks the float32 route's 2e-5 tolerance. ``scalar=True`` also
@@ -41,7 +42,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches through `flash_attention` (counted per call): of either kernel,

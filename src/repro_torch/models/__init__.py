@@ -1,2 +1,3 @@
-"""The LM substrate: layers, attention, the dense transformer and the
-model API. Port of `repro/models` (dense family)."""
+"""The LM substrate: layers, attention, the SSM mixer, MoE, the transformer
+of every family and the model API. Port of `repro/models` (all but the
+training loss)."""

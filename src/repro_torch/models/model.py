@@ -1,10 +1,10 @@
 """Model API: parameters, KV cache, prefill and decode.
 
-Port of `repro/models/model.py` for the dense and ssm families. Parameters are the
-reference's nested dict with stacked [n_layers, ...] leaves, as float32
-tensors; `params_from_reference` carries a tree of the reference's numpy
-arrays across. Entry points run on the card unless the caller passes
-``device="cpu"``.
+Port of `repro/models/model.py` (all but the training loss). Parameters
+are the reference's nested dict with stacked [n_layers, ...] leaves, as
+float32 tensors; `params_from_reference` carries a tree of the
+reference's numpy arrays across. Entry points run on the card unless
+the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -68,13 +68,19 @@ def params_from_reference(tree, *, device="cuda") -> dict:
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Total parameter count (embeddings + blocks + head). The dense and
-    ssm families have no experts, so ``active_only`` counts the same."""
+    """Total parameter count (embeddings + blocks + head); with
+    ``active_only``, the expert weights count top_k / n_experts of
+    themselves (each rounded down, as in the reference)."""
     total = 0
+    expert_scale = (cfg.top_k / cfg.n_experts) if (
+        active_only and cfg.n_experts) else 1.0
 
     def add(path, shape):
         nonlocal total
-        total += int(np.prod(shape))
+        n = int(np.prod(shape))
+        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
+            n = int(n * expert_scale)
+        total += n
         return shape
 
     _map_shapes(tf.param_shapes(cfg), add)
@@ -84,27 +90,41 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
-def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
-    """The decode cache as meta tensors (shape and dtype, no storage).
-    Dense: {"kv": (K, V)}, each [L, B, Smax, Hk, hd]. SSM:
-    {"mamba": {"h": [L, B, H, N, P] float32, "conv": [L, B, W-1, conv_ch]}},
-    no KV. bf16 unless the config's ``kv_dtype`` says otherwise."""
-    tf.check_supported(cfg)
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   src_len: int = 0) -> dict:
+    """The decode cache as meta tensors (shape and dtype, no storage):
+    - "kv": (K, V), each [L, B, max_seq, Hk, hd], every family but ssm
+      (the full ``max_seq``, window or not: the window masks the reads);
+    - "mamba": {"h": [L, B, H, N, P] float32, "conv": [L, B, W-1,
+      conv_ch]}, the ssm and hybrid families;
+    - "cross": (K, V), each [L, B, src_len or n_frontend_tokens, Hk, hd],
+      the encoder-decoder.
+    bf16 (the compute type) unless the config's ``kv_dtype`` says
+    otherwise."""
     dtype = CDT if cfg.kv_dtype == "bfloat16" else getattr(torch,
                                                             cfg.kv_dtype)
     L = cfg.n_layers
-    if cfg.family == "ssm":
+
+    def meta(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    cache: dict = {}
+    if cfg.family != "ssm":
+        kv = meta(L, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["kv"] = (kv, kv)
+    if cfg.family in ("ssm", "hybrid"):
         d_inner = cfg.ssm_expand * cfg.d_model
         H = d_inner // cfg.ssm_headdim
         conv_ch = d_inner + 2 * cfg.ssm_state
-        return {"mamba": {
-            "h": torch.empty((L, batch, H, cfg.ssm_state, cfg.ssm_headdim),
-                             dtype=torch.float32, device="meta"),
-            "conv": torch.empty((L, batch, cfg.conv_width - 1, conv_ch),
-                                dtype=dtype, device="meta")}}
-    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    kv = torch.empty(shape, dtype=dtype, device="meta")
-    return {"kv": (kv, kv)}
+        cache["mamba"] = {
+            "h": meta(L, batch, H, cfg.ssm_state, cfg.ssm_headdim,
+                      dt=torch.float32),
+            "conv": meta(L, batch, cfg.conv_width - 1, conv_ch)}
+    if cfg.enc_dec:
+        xkv = meta(L, batch, src_len or cfg.n_frontend_tokens,
+                   cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["cross"] = (xkv, xkv)
+    return cache
 
 
 def _zeros_like_tree(tree, dev):
@@ -115,48 +135,51 @@ def _zeros_like_tree(tree, dev):
     return torch.zeros_like(tree, device=dev)
 
 
-def zero_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
-               device="cuda") -> dict:
+def zero_cache(cfg: ArchConfig, batch: int, max_seq: int, src_len: int = 0,
+               *, device="cuda") -> dict:
     """A zeroed decode cache (the tree of `abstract_cache`) on ``device``."""
-    return _zeros_like_tree(abstract_cache(cfg, batch, max_seq),
+    return _zeros_like_tree(abstract_cache(cfg, batch, max_seq, src_len),
                             resolve_device(device))
 
 
-def _as_tokens(tokens, params: dict) -> torch.Tensor:
-    return torch.as_tensor(tokens, dtype=torch.int64,
-                           device=params["embed"].device)
+def _on(x, params: dict, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=dtype, device=params["embed"].device)
 
 
 def make_decode_step(cfg: ArchConfig):
     """decode_step(params, cache, tokens [B, 1], cache_len) ->
     (logits [B, V], cache). One new token against the cache; the cache's
-    tensors (K/V, or the SSM's h and conv) are updated in place and
-    returned. Every batch row advances, as in the reference."""
-    tf.check_supported(cfg)
+    tensors (K/V, the SSM's h and conv) are updated in place and
+    returned, the cross-attention K/V read. Every batch row advances, as in
+    the reference."""
 
     def decode_step(params, cache, tokens, cache_len):
-        x = embed(_as_tokens(tokens, params), params["embed"])
-        if cfg.family == "ssm":
-            h_all, conv_all = cache["mamba"]["h"], cache["mamba"]["conv"]
-            for i in range(cfg.n_layers):
-                x, new = tf.mamba_block(
-                    x, tf.layer_params(params["layers"], i), cfg,
-                    cache={"h": h_all[i], "conv": conv_all[i]})
-                h_all[i] = new["h"]
-                conv_all[i] = new["conv"]
-            x = apply_norm(x, params["final_norm"], cfg.norm)
-            return tf.logits_from_hidden(params, x, cfg)[:, 0, :], cache
+        x = embed(_on(tokens, params, torch.int64), params["embed"])
         positions = torch.full((1, 1), int(cache_len), dtype=torch.int64,
                                device=x.device)
         if cfg.pos == "learned":
             x = x + tf.learned_positions(params["pos_embed"], int(cache_len),
                                          1).to(x.dtype)[None]
-        k_all, v_all = cache["kv"]
+        if "mamba" in cache:
+            h_all, conv_all = cache["mamba"]["h"], cache["mamba"]["conv"]
         for i in range(cfg.n_layers):
-            x, _ = tf.dense_block(x, tf.layer_params(params["layers"], i),
-                                  cfg, positions,
-                                  cache={"kv": (k_all[i], v_all[i])},
-                                  cache_len=cache_len)
+            lp = tf.layer_params(params["layers"], i)
+            mamba = None if "mamba" not in cache else {
+                "h": h_all[i], "conv": conv_all[i]}
+            if cfg.family == "ssm":
+                x, new_mamba = tf.mamba_block(x, lp, cfg, cache=mamba)
+            else:
+                c = {"kv": (cache["kv"][0][i], cache["kv"][1][i])}
+                if mamba is not None:
+                    c["mamba"] = mamba
+                enc = None if "cross" not in cache else (
+                    cache["cross"][0][i], cache["cross"][1][i])
+                x, new, _ = tf.dense_block(x, lp, cfg, positions, cache=c,
+                                           cache_len=cache_len, enc_out=enc)
+                new_mamba = new.get("mamba")
+            if mamba is not None:
+                h_all[i] = new_mamba["h"]
+                conv_all[i] = new_mamba["conv"]
         x = apply_norm(x, params["final_norm"], cfg.norm)
         logits = tf.logits_from_hidden(params, x, cfg)
         return logits[:, 0, :], cache
@@ -165,16 +188,30 @@ def make_decode_step(cfg: ArchConfig):
 
 
 def make_prefill(cfg: ArchConfig):
-    """prefill(params, batch) -> (logits_last [B, V], hidden [B, S, d]).
+    """prefill(params, batch) -> (logits_last [B, V], hidden).
 
-    The full-context forward: every layer's attention (dense) or SSD scan
-    (ssm) is one launch of its kernel on the card. It builds no cache, as in
-    the reference (its serving engine steps prompts token by token)."""
-    tf.check_supported(cfg)
+    batch: {"tokens": [B, S]}, + "src" [B, Ssrc, d] (the encoder's frame
+    embeddings) for the encoder-decoder, + optionally "frontend" [B, F, d]
+    (patch embeddings put before the text) otherwise. The full-context
+    forward: every layer's attention and SSD scan is one launch of its
+    kernel on the card (the encoder-decoder: each encoder layer's
+    self-attention and each decoder layer's self- and cross-attention).
+    It builds no cache, as in the reference (its serving engine steps
+    prompts token by token)."""
 
     def prefill(params, batch):
-        tokens = _as_tokens(batch["tokens"], params)
-        hidden = tf.decoder_forward(params, tokens, cfg)
+        tokens = _on(batch["tokens"], params, torch.int64)
+        if cfg.enc_dec:
+            enc_x = tf.encoder_forward(params, _on(batch["src"], params),
+                                       cfg)
+            ekv = tf.cross_kv(params, enc_x, cfg)
+            hidden, _ = tf.decoder_forward(params, tokens, cfg, enc_kv=ekv)
+        else:
+            frontend = batch.get("frontend")
+            if frontend is not None:
+                frontend = _on(frontend, params)
+            hidden, _ = tf.decoder_forward(params, tokens, cfg,
+                                           frontend=frontend)
         logits = tf.logits_from_hidden(params, hidden[:, -1:, :], cfg)
         return logits[:, 0, :], hidden
 

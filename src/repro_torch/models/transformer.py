@@ -1,17 +1,25 @@
-"""LM assembly for the dense family (attention + MLP blocks) and the SSM
-family (Mamba2 mixer blocks).
+"""LM assembly for every family of the configs.
 
-Port of `repro/models/transformer.py`, dense and ssm families:
-tinyllama-1.1b and the other dense configs without a sliding window
-(granite, chatglm3, qwen2), and mamba2-130m. Parameters are stacked with a
-leading [n_layers] axis, as in the reference; `decoder_forward` walks the
-layers with a Python loop (no activation checkpointing: the port runs
-forward passes only). Prefill attention goes through the flash-attention
-kernel and the SSM prefill scan through the SSD-scan kernel; decode
-attends to the KV cache, which `self_attention` updates in place.
+Port of `repro/models/transformer.py`. Families:
+  dense   -- attn + MLP                    (granite, chatglm3, tinyllama,
+                                            qwen2; phi-3-vision's backbone)
+  moe     -- attn + MoE (+ dense residual) (dbrx, arctic)
+  ssm     -- mamba2 mixer only             (mamba2)
+  hybrid  -- parallel attn + mamba heads   (hymba)
+  audio   -- encoder/decoder + cross-attn  (seamless; frontend stubbed)
+A vision frontend (phi-3-vision) is precomputed patch embeddings put
+before the text.
 
-The MoE, hybrid and encoder-decoder families, sliding windows and modality
-frontends are not ported yet: `check_supported` refuses them.
+Parameters are stacked with a leading [n_layers] axis, as in the
+reference; the forward passes walk the layers with a Python loop (no
+activation checkpointing: the port runs forward passes only). Every
+prefill attention -- causal self-attention, with a sliding window where
+the config has one, the encoder's non-causal self-attention and the
+decoder's cross-attention -- goes through the flash-attention kernel, and
+every SSM prefill scan through the SSD-scan kernel. Decode attends to the
+KV cache, which `self_attention` updates in place; its cross-attention
+(one query over the encoder's frames) runs the flash-attention kernel too,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp,
@@ -26,22 +36,9 @@ from repro_torch.models.layers import (
     apply_rope,
     embed,
     mlp_param_shapes,
+    rms_norm,
     unembed,
 )
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port's model does not run."""
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the 'dense' and 'ssm' families only, "
-            f"not {cfg.family!r} (MoE, hybrid and audio wait for later "
-            f"slices)")
-    for flag, value in (("enc_dec", cfg.enc_dec), ("frontend", cfg.frontend),
-                        ("window", cfg.window)):
-        if value:
-            raise NotImplementedError(
-                f"{cfg.name}: {flag}={value!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -65,22 +62,36 @@ def attn_param_shapes(cfg: ArchConfig) -> dict:
     return out
 
 
-def block_param_shapes(cfg: ArchConfig) -> dict:
-    check_supported(cfg)
+def _mamba_shapes(cfg: ArchConfig) -> dict:
+    return ssm_mod.mamba_param_shapes(
+        cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+        n_state=cfg.ssm_state, conv_width=cfg.conv_width)
+
+
+def block_param_shapes(cfg: ArchConfig, cross: bool = False) -> dict:
     d = cfg.d_model
     if cfg.family == "ssm":
-        return {
-            "norm_m": _norm_shapes(d, cfg.norm),
-            "mamba": ssm_mod.mamba_param_shapes(
-                d, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
-                n_state=cfg.ssm_state, conv_width=cfg.conv_width),
-        }
-    return {
-        "ln1": _norm_shapes(d, cfg.norm),
-        "attn": attn_param_shapes(cfg),
-        "ln2": _norm_shapes(d, cfg.norm),
-        "mlp": mlp_param_shapes(d, cfg.d_ff, cfg.mlp),
-    }
+        return {"norm_m": _norm_shapes(d, cfg.norm),
+                "mamba": _mamba_shapes(cfg)}
+    shapes: dict = {"ln1": _norm_shapes(d, cfg.norm),
+                    "attn": attn_param_shapes(cfg)}
+    if cfg.hybrid:
+        shapes["mamba"] = _mamba_shapes(cfg)
+        shapes["branch_norm_a"] = _norm_shapes(
+            cfg.n_heads * cfg.resolved_head_dim, "rms")
+        shapes["branch_norm_m"] = _norm_shapes(d, "rms")
+    if cross:
+        shapes["ln_x"] = _norm_shapes(d, cfg.norm)
+        shapes["xattn"] = attn_param_shapes(cfg)
+    shapes["ln2"] = _norm_shapes(d, cfg.norm)
+    if cfg.family == "moe":
+        shapes["moe"] = moe_mod.moe_param_shapes(d, cfg.moe_dff,
+                                                 cfg.n_experts)
+        if cfg.dense_residual:
+            shapes["mlp"] = mlp_param_shapes(d, cfg.d_ff, cfg.mlp)
+    else:
+        shapes["mlp"] = mlp_param_shapes(d, cfg.d_ff, cfg.mlp)
+    return shapes
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
@@ -89,7 +100,11 @@ def param_shapes(cfg: ArchConfig) -> dict:
     if cfg.pos == "learned":
         shapes["pos_embed"] = (cfg.max_seq, d)
     shapes["layers"] = {k: _stack(v, cfg.n_layers) for k, v in
-                        block_param_shapes(cfg).items()}
+                        block_param_shapes(cfg, cross=cfg.enc_dec).items()}
+    if cfg.enc_dec:
+        shapes["enc_layers"] = {k: _stack(v, cfg.n_enc_layers) for k, v in
+                                block_param_shapes(cfg).items()}
+        shapes["enc_final_norm"] = _norm_shapes(d, cfg.norm)
     shapes["final_norm"] = _norm_shapes(d, cfg.norm)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.vocab, d)
@@ -111,19 +126,20 @@ def layer_params(stacked: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _project_qkv(x: torch.Tensor, p: dict, cfg: ArchConfig):
+def _project(x: torch.Tensor, p: dict, name: str, heads: int,
+             cfg: ArchConfig) -> torch.Tensor:
+    """x @ w{name} (+ b{name}) as [b, s, heads, hd]."""
     b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"].to(x.dtype))
-    k = torch.matmul(x, p["wk"].to(x.dtype))
-    v = torch.matmul(x, p["wv"].to(x.dtype))
+    y = torch.matmul(x, p["w" + name].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    return (q.reshape(b, s, cfg.n_heads, hd),
-            k.reshape(b, s, cfg.n_kv_heads, hd),
-            v.reshape(b, s, cfg.n_kv_heads, hd))
+        y = y + p["b" + name].to(x.dtype)
+    return y.reshape(b, s, heads, cfg.resolved_head_dim)
+
+
+def _project_qkv(x: torch.Tensor, p: dict, cfg: ArchConfig):
+    return (_project(x, p, "q", cfg.n_heads, cfg),
+            _project(x, p, "k", cfg.n_kv_heads, cfg),
+            _project(x, p, "v", cfg.n_kv_heads, cfg))
 
 
 def self_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
@@ -156,18 +172,55 @@ def self_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
     return o.reshape(b, s, -1), new_kv
 
 
+def _wo(o: torch.Tensor, p: dict) -> torch.Tensor:
+    return torch.matmul(o, p["wo"].to(o.dtype))
+
+
 def dense_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
-                positions: torch.Tensor, *, cache=None, cache_len=None):
-    """Returns (x, new_cache) -- new_cache {"kv": ...} when decoding."""
+                positions: torch.Tensor, *, cache=None, cache_len=None,
+                enc_out=None):
+    """Every family but ssm. Returns (x, new_cache, aux): new_cache holds
+    "kv" (and the hybrid's "mamba") when decoding; ``enc_out`` is this
+    layer's precomputed cross-attention (K, V); aux is the MoE's
+    load-balancing loss (0.0 for the other families)."""
     h = apply_norm(x, p["ln1"], cfg.norm)
     ao, kv = self_attention(h, p["attn"], cfg, positions,
                             cache=None if cache is None else cache["kv"],
                             cache_len=cache_len)
-    x = x + torch.matmul(ao, p["attn"]["wo"].to(x.dtype))
     new_cache = {} if cache is None else {"kv": kv}
+    if cfg.hybrid:
+        # Hymba: attention and mamba run in parallel on the same input; each
+        # branch output is normalized, then averaged (arXiv:2411.13676).
+        mo, mcache = ssm_mod.mamba_mixer(
+            h, p["mamba"], expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+            n_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+            cache=None if cache is None else cache["mamba"])
+        ao = rms_norm(ao, p["branch_norm_a"]["scale"])
+        mo = rms_norm(mo, p["branch_norm_m"]["scale"])
+        x = x + 0.5 * (_wo(ao, p["attn"]) + mo)
+        if cache is not None:
+            new_cache["mamba"] = mcache
+    else:
+        x = x + _wo(ao, p["attn"])
+    if enc_out is not None:
+        hx = apply_norm(x, p["ln_x"], cfg.norm)
+        q = _project(hx, p["xattn"], "q", cfg.n_heads, cfg)
+        ek, ev = enc_out
+        o = attn.flash_attention(q, ek, ev, causal=False, window=None)
+        x = x + _wo(o.reshape(*o.shape[:2], -1), p["xattn"])
     h2 = apply_norm(x, p["ln2"], cfg.norm)
-    x = x + apply_mlp(h2, p["mlp"], cfg.mlp)
-    return x, new_cache
+    aux = 0.0
+    if cfg.family == "moe":
+        b, s, d = h2.shape
+        y, aux = moe_mod.moe_ffn(h2.reshape(b * s, d), p["moe"],
+                                 n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor)
+        y = y.reshape(b, s, d)
+        if cfg.dense_residual:
+            y = y + apply_mlp(h2, p["mlp"], cfg.mlp)
+    else:
+        y = apply_mlp(h2, p["mlp"], cfg.mlp)
+    return x + y, new_cache, aux
 
 
 def mamba_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, cache=None):
@@ -195,23 +248,59 @@ def learned_positions(table: torch.Tensor, start: int,
     return table[start:start + size]
 
 
+def encoder_forward(params: dict, src_embeds: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """Seamless encoder over precomputed frame embeddings [b, S, d]
+    (frontend stub): non-causal self-attention + MLP blocks."""
+    x = src_embeds.to(layers.CDT)
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][:x.shape[1]].to(x.dtype)[None]
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params["enc_layers"], i)
+        h = apply_norm(x, lp["ln1"], cfg.norm)
+        q, k, v = _project_qkv(h, lp["attn"], cfg)
+        o = attn.flash_attention(q, k, v, causal=False, window=None)
+        x = x + _wo(o.reshape(*o.shape[:2], -1), lp["attn"])
+        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        x = x + apply_mlp(h2, lp["mlp"], cfg.mlp)
+    return apply_norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def cross_kv(params: dict, enc_x: torch.Tensor, cfg: ArchConfig):
+    """Each decoder layer's cross-attention K/V of the encoder output:
+    ([L, b, s, Hk, hd], [L, b, s, Hk, hd])."""
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        xp = layer_params(params["layers"], i)["xattn"]
+        ks.append(_project(enc_x, xp, "k", cfg.n_kv_heads, cfg))
+        vs.append(_project(enc_x, xp, "v", cfg.n_kv_heads, cfg))
+    return torch.stack(ks), torch.stack(vs)
+
+
 def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
-                    pos_offset: int = 0) -> torch.Tensor:
-    """Prefill forward over [b, S] tokens. Returns hidden [b, S, d]."""
-    check_supported(cfg)
+                    frontend=None, enc_kv=None, pos_offset: int = 0):
+    """Prefill forward over [b, S] tokens, after ``frontend`` embeddings
+    [b, F, d] if given (positions run over both), cross-attending
+    ``enc_kv`` if given. Returns (hidden [b, F + S, d], aux_loss [])."""
     x = embed(tokens, params["embed"])
+    if frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = (torch.arange(S, device=x.device) + pos_offset)[None, :]
     if cfg.pos == "learned":
         x = x + learned_positions(params["pos_embed"], pos_offset, S).to(
             x.dtype)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         if cfg.family == "ssm":
             x, _ = mamba_block(x, lp, cfg)
-        else:
-            x, _ = dense_block(x, lp, cfg, positions)
-    return apply_norm(x, params["final_norm"], cfg.norm)
+            continue
+        enc = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
+        x, _, layer_aux = dense_block(x, lp, cfg, positions, enc_out=enc)
+        if cfg.family == "moe":
+            aux = aux + layer_aux
+    return apply_norm(x, params["final_norm"], cfg.norm), aux
 
 
 def logits_from_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig):
@@ -220,7 +309,6 @@ def logits_from_hidden(params: dict, x: torch.Tensor, cfg: ArchConfig):
 
 
 __all__ = [
-    "check_supported",
     "param_shapes",
     "block_param_shapes",
     "attn_param_shapes",
@@ -229,6 +317,8 @@ __all__ = [
     "dense_block",
     "mamba_block",
     "learned_positions",
+    "encoder_forward",
+    "cross_kv",
     "decoder_forward",
     "logits_from_hidden",
 ]

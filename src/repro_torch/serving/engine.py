@@ -5,7 +5,12 @@ requests into KV slots, one decode step per tick over the whole batch,
 greedy sampling. Admission steps each prompt token by token through the
 decode step, exactly as the reference does; each step runs every slot's
 row at the stepped slot's position, so it also writes the other slots'
-cache there (the reference's behaviour, kept). The replicated service
+cache there (the reference's behaviour, kept). The cache is the
+reference's `zero_cache` with no source length, so an encoder-decoder
+(seamless) serves against an all-zero cross-attention cache of
+``n_frontend_tokens`` frames, and a vision model (phi-3-vision) serves
+text only: the decode step has no frontend (both the reference's
+behaviour, kept). The replicated service
 (`ReplicatedLMService`, `_LMStateMachine`) rides on the event-driven
 `nezha` backend, which the port does not have yet.
 """

@@ -8,7 +8,9 @@ inputs, in one stream operation a call; cataloged scenarios of
 `repro_torch.sim.scenario` on the card against their CPU runs, bit for bit;
 and the DOM kernels' batched form over G groups (one launch for all G)
 against its plain version, with `nezha-sharded`'s batched path on the card
-against its sequential path and the CPU.
+against its sequential path and the CPU; and the hybrid, MoE,
+encoder-decoder and vision-frontend families' prefill on the card against
+the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor `repro`, so it
@@ -373,6 +375,27 @@ def _qkv(dev, B, S, Sk, Hq, Hk, D, dtype, seed=0):
     # offset into a longer context
     (1, 2048, 2048, 25, 5, 64, True, 1024, 0),
     (1, 2048, 4096, 25, 5, 64, True, 1024, 2048),
+    # D 96 (phi-3-vision-4.2b: one and a half 64-column atoms): ragged S,
+    # non-causal, S != Sk, a window, GQA, and the model's own heads
+    (2, 200, 200, 8, 8, 96, True, None, 0),
+    (1, 65, 65, 4, 2, 96, True, None, 0),
+    (2, 130, 130, 4, 4, 96, False, None, 0),
+    (1, 77, 333, 4, 2, 96, False, None, 0),
+    (1, 300, 300, 8, 1, 96, True, 64, 0),
+    (1, 40, 200, 4, 2, 96, True, 16, 160),
+    (1, 1024, 1024, 32, 32, 96, True, None, 0),
+    # seamless-m4t-large-v2's cross attention: one decode query over 2048
+    # frames, and the encoder's non-causal S = Sk (16 heads of 64)
+    (4, 1, 2048, 16, 16, 64, False, None, 0),
+    (1, 2048, 2048, 16, 16, 64, False, None, 0),
+    # the prefills of phase 12 of chip_smoke.py: seamless-m4t-large-v2's
+    # decoder self-attention (16/16 heads), dbrx-132b (48/8, D 128: groups
+    # of 6) and arctic-480b (56/8: groups of 7, not a power of two), and
+    # groups of 7 at a ragged length
+    (2, 4096, 4096, 16, 16, 64, True, None, 0),
+    (2, 4096, 4096, 48, 8, 128, True, None, 0),
+    (2, 4096, 4096, 56, 8, 128, True, None, 0),
+    (1, 200, 200, 14, 2, 128, True, None, 0),
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, S, Sk, Hq, Hk, D,
                                              causal, window, q_offset):
@@ -392,7 +415,7 @@ def test_flash_attention_wrapper_launches_on_cuda_tensors(dev):
     before = fa_mod.launches
     fa_mod.flash_attention(q, k, v)
     assert fa_mod.launches == before + 1
-    with pytest.raises(ValueError):           # the kernel takes D in {64, 128}
+    with pytest.raises(ValueError):     # the kernel takes D in {64, 96, 128}
         fa_mod.flash_attention(q[..., :32].contiguous(),
                                k[..., :32].contiguous(),
                                v[..., :32].contiguous())
@@ -438,10 +461,11 @@ def test_flash_attention_routes_by_dtype(dev):
     assert counts() == (total + 3, tc + 1, scalar + 2)
 
 
+@pytest.mark.parametrize("D", [64, 96])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_raises_when_its_build_or_launch_fails(
-        dev, monkeypatch, dtype):
-    q, k, v = _qkv(dev, 1, 64, 64, 4, 2, 64, dtype, seed=9)
+        dev, monkeypatch, dtype, D):
+    q, k, v = _qkv(dev, 1, 64, 64, 4, 2, D, dtype, seed=9)
     before = fa_mod.launches
 
     def no_build(name):
@@ -485,6 +509,110 @@ def test_lm_prefill_through_the_kernel_matches_the_plain_path(dev):
     err = float((logits.float() - want.float()).abs().max().cpu())
     assert torch.isfinite(hidden).all()
     assert err <= scale * 2 ** -5
+
+
+# The remaining families at smoke size with head dims the kernel takes
+# (64; phi-3-vision 96), and the kernel launches one prefill makes.
+FAMILY_SMOKE = {
+    "hymba-1.5b": dict(head_dim=64),
+    "dbrx-132b": dict(head_dim=64),
+    "arctic-480b": dict(head_dim=64),
+    "seamless-m4t-large-v2": dict(head_dim=64),
+    "phi-3-vision-4.2b": dict(head_dim=96),
+}
+
+
+def _family_batch(cfg, dev, seed=1):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 150)),
+                                       device=dev)}
+    if cfg.frontend:
+        key = "src" if cfg.enc_dec else "frontend"
+        batch[key] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32),
+            device=dev)
+    return batch
+
+
+class _Routing:
+    """Patches `moe.top_k`: records the experts each call picks (the card
+    run), then hands the same experts to the next run's calls in order
+    (the CPU run), noting each token whose own top-k set differs."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import moe
+
+        self.top_k, self.picked, self.replay = moe.top_k, [], None
+        self.flips = 0
+        monkeypatch.setattr(moe, "top_k", self)
+
+    def __call__(self, probs, k):
+        vals, idx = self.top_k(probs, k)
+        if self.replay is None:
+            self.picked.append(idx.cpu())
+            return vals, idx
+        forced = self.replay.pop(0).to(probs.device)
+        own = torch.sort(idx, -1).values != torch.sort(forced, -1).values
+        differ = own.any(-1)
+        self.flips += int(differ.sum())
+        # a token may take another expert set only on a near-tie: its own
+        # top-k mass and the forced set's agree within 2^-6 (a few bf16
+        # units of the router's input)
+        mass = probs.gather(-1, forced).sum(-1)
+        assert bool((vals.sum(-1) - mass <= 2 ** -6 * vals.sum(-1)).all())
+        return probs.gather(-1, forced), forced
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(FAMILY_SMOKE))
+def test_family_prefill_on_the_card_equals_the_cpu(dev, monkeypatch, name,
+                                                   compute):
+    """Each remaining family at smoke size (2 layers, d 64, 150 tokens past
+    hymba's smoke window of 64), the same parameters on the card and on
+    the CPU: the card's prefill launches flash_attention once per
+    attention (hymba also ssd_scan once per layer; seamless 2 encoder + 2
+    self + 2 cross) on the route of the compute type, and its last logits
+    equal the CPU's (the plain versions) within 1e-4 of the largest logit
+    in float32 and 2^-5 in bf16. MoE: the CPU run takes the card run's
+    experts. Top-k routing is a step function, so in bf16 a token whose
+    k-th and (k+1)-th router probabilities all but tie may pick another
+    set on the other device; each such token must be a near-tie (the two
+    sets' probability mass within 2^-6), and float32 must have none."""
+    import repro_torch.models.layers as layers
+    import repro_torch.models.model as model
+    from repro_torch.configs import smoke_config
+
+    monkeypatch.setattr(layers, "CDT", compute)
+    monkeypatch.setattr(model, "CDT", compute)
+    cfg = smoke_config(name, **FAMILY_SMOKE[name])
+    params = model.init_params(cfg, seed=0, device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    on_card = to_card(params)
+    prefill = model.make_prefill(cfg)
+    routing = _Routing(monkeypatch) if cfg.family == "moe" else None
+    counts = (fa_mod.launches, fa_mod.launches_tensor_core, ssd_mod.launches)
+    got, hidden = prefill(on_card, _family_batch(cfg, dev))
+    torch.cuda.synchronize()
+    attn = cfg.n_layers * (3 if cfg.enc_dec else 1)
+    route = 1 if compute == torch.bfloat16 else 0
+    assert (fa_mod.launches - counts[0], fa_mod.launches_tensor_core -
+            counts[1], ssd_mod.launches - counts[2]) == (
+        attn, attn * route, cfg.n_layers if cfg.hybrid else 0)
+    if routing is not None:
+        assert len(routing.picked) == cfg.n_layers
+        routing.replay = list(routing.picked)
+    want, _ = prefill(params, _family_batch(cfg, "cpu"))
+    if routing is not None:
+        assert routing.replay == [] and (
+            compute == torch.bfloat16 or routing.flips == 0)
+    tol = float(want.float().abs().max()) * (
+        2 ** -5 if compute == torch.bfloat16 else 1e-4)
+    err = (got.float().cpu() - want.float()).abs().max()
+    assert torch.isfinite(hidden).all() and float(err) <= tol
 
 
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}

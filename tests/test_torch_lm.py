@@ -85,25 +85,42 @@ def test_configs_are_the_references():
         dataclasses.asdict(j_smoke_config(ARCH, n_layers=3))
 
 
-@pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen2-7b",
-                                  "granite-20b", "chatglm3-6b",
-                                  "mamba2-130m"])
+ALL_CONFIGS = ["arctic-480b", "chatglm3-6b", "dbrx-132b", "granite-20b",
+               "hymba-1.5b", "mamba2-130m", "phi-3-vision-4.2b", "qwen2-7b",
+               "seamless-m4t-large-v2", "tinyllama-1.1b"]
+
+
+def test_all_configs_lists_the_registry():
+    assert all_arch_names() == ALL_CONFIGS
+
+
+@pytest.mark.parametrize("name", ALL_CONFIGS)
 def test_count_params_equals_the_references(name):
     assert tm.count_params(get_config(name)) == \
         jm.count_params(j_get_config(name))
     assert get_config(name).n_params() == j_get_config(name).n_params()
+    assert get_config(name).n_active_params() == \
+        j_get_config(name).n_active_params()
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "dbrx-132b",
-                                  "seamless-m4t-large-v2",
-                                  "phi-3-vision-4.2b"])
-def test_unported_families_are_refused(name):
+@pytest.mark.parametrize("name", ALL_CONFIGS)
+def test_every_config_runs_prefill_and_a_decode_step(name):
+    """Every registered config at smoke size: prefill and one decode step
+    run on the CPU and give finite logits of the vocabulary's width (the
+    families' numbers against the reference are in
+    `tests/test_torch_families.py` and below)."""
     cfg = smoke_config(name)
-    for fn in (lambda: tm.count_params(cfg), lambda: tm.make_prefill(cfg),
-               lambda: tm.make_decode_step(cfg),
-               lambda: tm.zero_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError):
-            fn()
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    batch = {"tokens": torch.as_tensor(_tokens(cfg, (1, 9), seed=1))}
+    if cfg.frontend:
+        key = "src" if cfg.enc_dec else "frontend"
+        batch[key] = torch.zeros(1, cfg.n_frontend_tokens, cfg.d_model)
+    logits, _ = tm.make_prefill(cfg)(params, batch)
+    cache = tm.zero_cache(cfg, 1, 8, device="cpu")
+    step, _ = tm.make_decode_step(cfg)(params, cache, batch["tokens"][:, :1],
+                                       0)
+    for out in (logits, step):
+        assert out.shape == (1, cfg.vocab) and bool(torch.isfinite(out).all())
 
 
 # ---------------------------------------------------------------------------
@@ -423,8 +440,9 @@ def test_prefill_past_the_position_table_clamps_as_the_reference(granite):
     cfg_j, cfg_t, pj, pt = granite
     tokens = _tokens(cfg_j, (1, 8), seed=6)
     hj, _ = j_forward(pj, jnp.asarray(tokens), cfg_j, pos_offset=508)
-    ht = ttf.decoder_forward(pt, torch.as_tensor(tokens), cfg_t,
-                             pos_offset=508)
+    ht, aux = ttf.decoder_forward(pt, torch.as_tensor(tokens), cfg_t,
+                                  pos_offset=508)
+    assert float(aux) == 0.0                   # no MoE layer
     assert ht.shape == (1, 8, cfg_t.d_model)
     np.testing.assert_allclose(_np(ht), _np(hj), rtol=0, atol=bf16_tol(hj))
 
@@ -445,13 +463,6 @@ def test_slot_pool_and_prefill_write():
     assert bool((k[:, 1] == 1).all()) and not bool(k[:, [0, 2]].any())
 
 
-def test_model_refuses_a_window_and_names_what_it_runs():
-    cfg = dataclasses.replace(smoke_config(ARCH), window=64)
-    with pytest.raises(NotImplementedError, match="window"):
-        ttf.check_supported(cfg)
-    ttf.check_supported(smoke_config(ARCH))
-
-
 # ---------------------------------------------------------------------------
 # the ssm family: mamba2-130m at smoke size
 # ---------------------------------------------------------------------------
@@ -467,14 +478,12 @@ def ssm_setup():
     return cfg_j, cfg_t, pj, tree, pt
 
 
-def test_ssm_family_is_accepted_and_the_hybrid_still_refused():
-    ttf.check_supported(smoke_config(SSM))
-    ttf.check_supported(get_config(SSM))
+def test_ssm_family_count_and_cache_have_no_attention():
     assert tm.count_params(get_config(SSM)) == 128_940_480
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        ttf.check_supported(get_config("hymba-1.5b"))
-    with pytest.raises(NotImplementedError):
-        tm.make_prefill(smoke_config("hymba-1.5b"))
+    assert set(tm.zero_cache(smoke_config(SSM), 1, 8, device="cpu")) == \
+        {"mamba"}
+    assert set(tm.zero_cache(smoke_config("hymba-1.5b"), 1, 8,
+                             device="cpu")) == {"kv", "mamba"}
 
 
 def test_ssm_params_from_reference_round_trip_every_leaf(ssm_setup):
