@@ -152,9 +152,30 @@ Phases (any failure exits non-zero):
      (`LM_PATHS`; MoE: also the (token, layer) top-k sets that differ
      between the runs), and the 4-slot server (seamless: 24
      cross-attention launches a decode step).
+ 13. the event-driven backends and the replicated services
+     (`repro_torch.core.protocol`, `core.baselines`,
+     `serving.engine.ReplicatedLMService`): the replicated LM service (f 1:
+     3 replicas on the card, one copy of the parameters, a cache each;
+     n_slots 4, max_seq 128) on tinyllama-1.1b and seamless-m4t-large-v2
+     at full width, random weights from seed 0, answering 4 prompts of 8
+     tokens with 8 new each, then the leader's crash, 0.2 s, and the same
+     questions again; the flash_attention counts reset just before the
+     service is built and read after the failover (seamless: 24
+     launches, on the tensor cores, for each decode step of every engine
+     the replicas made; tinyllama: none); the replicas' state
+     fingerprints must agree, the tokens equal a lone `ServingEngine`'s
+     fed the same ADMIT/TICK sequence, bit for bit, and survive the
+     failover. Then `benchmarks/figs.py`'s backend cross-check at its
+     quick settings (`nezha` on the host beside `nezha-vectorized` on the
+     card, f 1, 10 clients, 1000 and 5000 req/s a client, 0.2 s; both
+     commit every request; the DOM counts reset before and read after the
+     vectorized run: one launch of each kernel per epoch with requests),
+     and Fig 9's "full" point (f 1, 3 proxies, 10 clients x 2000 req/s,
+     0.25 s) on `nezha` and `nezha-nonproxy` (host code), with walls.
 The last lines are the kernels' JSON record (the DOM records also carry
-phase 10's launches by route and phase 11's batched rows and launches,
-flash_attention and ssd_scan phase 12's launches and attention rows),
+phase 10's launches by route, phase 11's batched rows and launches and
+phase 13's cross-check launches, flash_attention and ssd_scan phase 12's
+launches and attention rows, flash_attention phase 13's launches),
 the nvidia-smi line and {"ok": true, "device": {...}}. The script imports
 nothing of JAX or `repro`.
 
@@ -1921,6 +1942,238 @@ def drive_sharded(dev) -> dict:
     return {"batched": batched, "runs": runs, "scenarios": scenarios}
 
 
+# Phase 13: the replicated LM service at full width (random weights from
+# seed 0, f 1: three replicas on the card, the service's defaults n_slots 4
+# and max_seq 128) answering 4 prompts of 8 tokens with 8 new tokens each,
+# then the failover of the reference's service test; the backend
+# cross-check of benchmarks/figs.py (event `nezha` on the host beside
+# `nezha-vectorized` on the card); and Fig 9's "full" operating point on
+# `nezha` and `nezha-nonproxy` (host code).
+SERVICE_ARCHS = ("tinyllama-1.1b", "seamless-m4t-large-v2")
+SERVICE_PROMPTS, SERVICE_PROMPT_LEN, SERVICE_MAX_NEW = 4, 8, 8
+CROSSCHECK_RATES = (1000.0, 5000.0)     # req/s a client, 10 clients, 0.2 s
+FIG9_RATE, FIG9_DURATION = 2000.0, 0.25  # 10 clients, 3 proxies
+
+
+def drive_service(dev, cfg, name: str) -> dict:
+    """Phase 13: `ReplicatedLMService` on ``cfg`` with the engines on the
+    card. The flash_attention counts are reset just before the service
+    is built and read after the failover: each decode step of an
+    encoder-decoder launches the cross attention once a layer, on the
+    tensor cores; a decoder-only model's decode steps launch none. The
+    replicas' fingerprints must agree, the tokens must equal a lone
+    `ServingEngine`'s fed the same ADMIT/TICK sequence (run after the
+    counts are read), and the results must survive the leader's crash."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import (GenRequest, ReplicatedLMService,
+                                            ServingEngine)
+
+    out = {"name": name}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, SERVICE_PROMPT_LEN).tolist()
+               for _ in range(SERVICE_PROMPTS)]
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_tensor_core = fa.launches_scalar = 0
+    t0 = time.perf_counter()
+    svc = ReplicatedLMService(cfg, params, f=1, seed=0)
+    ids = [svc.submit_prompt(p, max_new=SERVICE_MAX_NEW) for p in prompts]
+    ticks = [svc.step() for _ in range(SERVICE_MAX_NEW)]
+    before = [tuple(svc.result(i)) for i in ids]
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    svc.cluster.run_for(0.05)       # followers execute to the commit point
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    reps = svc.cluster.replicas
+    caught_up = [r.executed_point == len(r.synced) for r in reps]
+    fingerprints = [r.sm.engine.state_fingerprint() for r in reps]
+    out["steps_per_replica"] = [r.sm.engine.n_steps for r in reps]
+    s = svc.cluster.summary()
+    out["summary"] = {k: s[k] for k in ("n_requests", "committed",
+                                        "fast_commit_ratio",
+                                        "median_latency", "p90_latency")}
+    old = svc.cluster.leader_id
+    t1 = time.perf_counter()
+    svc.cluster.crash_replica(old)
+    svc.cluster.run_for(0.2)
+    after = [tuple(svc.result(i)) for i in ids]
+    torch.cuda.synchronize()
+    out["failover_s"] = time.perf_counter() - t1
+    out["leaders"] = (old, svc.cluster.leader_id)
+    out["view_changes"] = svc.cluster.summary()["view_changes"]
+    out["launches"] = fa.launches
+    out["attention_routes"] = {"tensor_core": fa.launches_tensor_core,
+                               "scalar": fa.launches_scalar}
+    out["decode_steps"] = sum(e.n_steps for e in svc.engines_made)
+    out["engines_made"] = len(svc.engines_made)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["tokens"] = [list(t) for t in before]
+    gen_tokens = SERVICE_PROMPTS * SERVICE_MAX_NEW
+    out["tokens_per_s"] = gen_tokens / out["serve_s"]
+
+    lone = ServingEngine(cfg, params, n_slots=4, max_seq=128)
+    for i, p in enumerate(prompts):
+        lone.admit(GenRequest(seq_id=i, prompt=p, max_new=SERVICE_MAX_NEW))
+    for _ in range(SERVICE_MAX_NEW):
+        lone.tick()
+    lone_out = [tuple(lone.requests[i].out) for i in range(SERVICE_PROMPTS)]
+
+    want = out["decode_steps"] * cfg.n_layers * int(cfg.enc_dec)
+    problems = []
+    if any(e.device != torch.device(dev) for e in svc.engines_made):
+        problems.append("an engine is not on the card")
+    if not all(caught_up):
+        problems.append(f"replicas not caught up: {caught_up}")
+    if len(set(fingerprints)) != 1 or fingerprints[0] != \
+            lone.state_fingerprint() or ticks[-1][2] != fingerprints[0]:
+        problems.append("the replicas' state fingerprints disagree with "
+                        "each other or with the lone engine")
+    if before != lone_out:
+        problems.append(f"the service's tokens {before} differ from the "
+                        f"lone engine's {lone_out}")
+    if not all(len(t) == SERVICE_MAX_NEW and all(0 <= x < cfg.vocab
+                                                 for x in t) for t in before):
+        problems.append(f"malformed answers {before}")
+    if after != before or out["leaders"][1] == old:
+        problems.append(f"failover changed the results or kept the leader: "
+                        f"{before} -> {after}, leaders {out['leaders']}")
+    if s["committed"] != s["n_requests"] or s["committed"] != (
+            2 * SERVICE_PROMPTS + SERVICE_MAX_NEW):
+        problems.append(f"the cluster committed {s['committed']} of "
+                        f"{s['n_requests']} commands")
+    if out["launches"] != want or out["attention_routes"] != {
+            "tensor_core": want, "scalar": 0}:
+        problems.append(f"flash_attention launched {out['launches']} "
+                        f"({out['attention_routes']}) for "
+                        f"{out['decode_steps']} decode steps, not {want} on "
+                        f"the tensor cores")
+    if problems:
+        raise RuntimeError(f"replicated {name}: " + "; ".join(problems))
+    del svc, lone, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def service_line(r: dict, card: str) -> str:
+    sm = r["summary"]
+    return (f"replicated {r['name']} (3 replicas, {card}): "
+            f"{SERVICE_PROMPTS} prompts x {SERVICE_PROMPT_LEN} tokens -> "
+            f"{SERVICE_MAX_NEW} new each in {r['serve_s']:.3f} s "
+            f"({r['tokens_per_s']:.2f} generated tokens/s; wall with the "
+            f"followers' catch-up {r['wall_s']:.3f} s; init {r['init_s']:.2f}"
+            f" s), decode steps per replica {r['steps_per_replica']}, "
+            f"committed {sm['committed']} of {sm['n_requests']}, fast ratio "
+            f"{sm['fast_commit_ratio']:.4f}, median commit "
+            f"{sm['median_latency'] * 1e6:.1f} us; failover (leader "
+            f"{r['leaders'][0]} -> {r['leaders'][1]}) {r['failover_s']:.3f} s,"
+            f" results unchanged; flash_attention {r['launches']} launches "
+            f"over {r['decode_steps']} decode steps of {r['engines_made']} "
+            f"engines ({json.dumps(r['attention_routes'])}); peak "
+            f"{r['peak_gb']:.2f} GB; replicas == lone engine, bit for bit; "
+            f"first answer {r['tokens'][0]}")
+
+
+def drive_crosscheck() -> list:
+    """Phase 13: benchmarks/figs.py's backend cross-check at its quick
+    settings. The vectorized run's DOM counts are reset just before and
+    read just after: one launch of each kernel per epoch with requests.
+    The event run launches none. Both must commit every request."""
+    import torch
+
+    from repro_torch.core import CommonConfig, VectorizedConfig, make_cluster
+    from repro_torch.sim.workload import Workload, WorkloadDriver
+
+    rows = []
+    for rate in CROSSCHECK_RATES:
+        work = Workload(mode="open", rate_per_client=rate, duration=0.2,
+                        seed=0)
+        row = {"rate": rate}
+        for name in ("nezha", "nezha-vectorized"):
+            # the event backend promotes the bare CommonConfig, as the
+            # benchmark does; the vectorized one is the same fields
+            cfg = (CommonConfig(f=1, n_clients=10, seed=0) if name == "nezha"
+                   else VectorizedConfig(f=1, n_clients=10, seed=0))
+            reset_dom_counts()
+            with dispatch_probe() as lanes:
+                t0 = time.perf_counter()
+                s = WorkloadDriver(work).run(make_cluster(name, cfg))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = dom_counts()
+            want = len(lanes) if name == "nezha-vectorized" else 0
+            for kernel, by_route in counts.items():
+                if sum(by_route.values()) != want:
+                    raise RuntimeError(
+                        f"cross-check {name}@{rate:.0f}: {kernel} launched "
+                        f"{json.dumps(by_route)} for {len(lanes)} epochs "
+                        f"with requests (want {want})")
+            if name == "nezha-vectorized" and not (
+                    len(lanes) > 0 and len(lanes) == s["batches"]):
+                raise RuntimeError(f"cross-check: {len(lanes)} dispatches "
+                                   f"for {s['batches']} epochs with "
+                                   f"requests")
+            if not s["n_requests"] > 0 or s["committed"] != s["n_requests"]:
+                raise RuntimeError(f"cross-check {name}@{rate:.0f}: "
+                                   f"committed {s['committed']} of "
+                                   f"{s['n_requests']}")
+            row[name] = {"n_requests": s["n_requests"],
+                         "committed": s["committed"],
+                         "median_latency": s["median_latency"],
+                         "fast_commit_ratio": s["fast_commit_ratio"],
+                         "wall_s": wall, "epochs_with_requests": len(lanes),
+                         "launches_by_route": counts,
+                         "tier": s.get("tier", s["backend"])}
+        rows.append(row)
+    return rows
+
+
+def crosscheck_line(row: dict) -> str:
+    ev, vec = row["nezha"], row["nezha-vectorized"]
+    return (f"  {row['rate']:.0f} req/s a client: {ev['committed']} of "
+            f"{ev['n_requests']} committed on both; median "
+            f"{ev['median_latency'] * 1e6:.1f} us (nezha, host) vs "
+            f"{vec['median_latency'] * 1e6:.1f} us (nezha-vectorized, "
+            f"{vec['tier']}); fast ratio {ev['fast_commit_ratio']:.4f} vs "
+            f"{vec['fast_commit_ratio']:.4f}; wall {ev['wall_s']:.3f} s vs "
+            f"{vec['wall_s']:.3f} s; {vec['epochs_with_requests']} epochs "
+            f"with requests, DOM launches "
+            f"{json.dumps(vec['launches_by_route'])}")
+
+
+def drive_fig9() -> dict:
+    """Phase 13: Fig 9's "full" configuration (benchmarks/figs.py) on the
+    two event-driven Nezha backends, host code. Every request commits."""
+    from repro_torch.core import ClusterConfig, make_cluster
+    from repro_torch.sim.workload import Workload, WorkloadDriver
+
+    out = {}
+    for name in ("nezha", "nezha-nonproxy"):
+        cfg = ClusterConfig(f=1, n_proxies=3, n_clients=10, seed=0)
+        work = Workload(mode="open", rate_per_client=FIG9_RATE,
+                        duration=FIG9_DURATION, seed=0)
+        t0 = time.perf_counter()
+        s = WorkloadDriver(work).run(make_cluster(name, cfg))
+        wall = time.perf_counter() - t0
+        if not s["n_requests"] > 0 or s["committed"] != s["n_requests"]:
+            raise RuntimeError(f"fig 9 {name}: committed {s['committed']} "
+                               f"of {s['n_requests']}")
+        out[name] = {k: s[k] for k in (
+            "n_requests", "committed", "fast_commit_ratio", "median_latency",
+            "p90_latency", "throughput", "events", "messages")}
+        out[name]["wall_s"] = wall
+        out[name]["wall_per_sim_s"] = wall / (FIG9_DURATION + work.drain)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2248,6 +2501,29 @@ def main() -> int:
             print(line)
         print(f"  ({time.perf_counter() - t_fam:.1f} s for {name})")
 
+    # -- 13. the replicated services and the event-driven backends -------------
+    from repro_torch.configs import get_config
+
+    services = {}
+    for name in SERVICE_ARCHS:
+        services[name] = drive_service(dev, get_config(name), name)
+        print(service_line(services[name], card))
+    print("backend cross-check (benchmarks/figs.py, f 1, 10 clients, 0.2 s, "
+          "open loop):")
+    xcheck = drive_crosscheck()
+    for row in xcheck:
+        print(crosscheck_line(row))
+    fig9 = drive_fig9()
+    for name, r in fig9.items():
+        print(f"fig 9 full ({name}, f 1, 3 proxies, 10 clients x "
+              f"{FIG9_RATE:.0f} req/s, {FIG9_DURATION} s, host): "
+              f"{r['committed']} of {r['n_requests']} committed, fast ratio "
+              f"{r['fast_commit_ratio']:.4f}, median "
+              f"{r['median_latency'] * 1e6:.1f} us, p90 "
+              f"{r['p90_latency'] * 1e6:.1f} us, {r['events']} events, wall "
+              f"{r['wall_s']:.3f} s ({r['wall_per_sim_s']:.2f} s per "
+              f"simulated s)")
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -2294,6 +2570,9 @@ def main() -> int:
             "scenario_launches_by_route": {
                 sc: v["launches_by_route"][name]
                 for sc, v in shard["scenarios"].items()}}
+        entry["crosscheck_launches_by_route"] = {
+            f"{row['rate']:.0f}": row["nezha-vectorized"][
+                "launches_by_route"][name] for row in xcheck}
         record["kernels"].append(entry)
     r = fa_main["bfloat16"]
     record["kernels"].append({
@@ -2317,6 +2596,10 @@ def main() -> int:
             "flash_attention"], "by_route": r["attention_routes"],
             "serving_launches": r["serve"]["attention_launches"]}
             for name, r in families.items()},
+        "replicated_services": {name: {
+            "launches": r["launches"], "by_route": r["attention_routes"],
+            "decode_steps": r["decode_steps"]}
+            for name, r in services.items()},
         "family_shapes": [{k: r.get(k) for k in (
             "label", "shape", "route", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "scalar_ms", "tflops")}

@@ -1,14 +1,93 @@
-"""Port of `repro/core/recovery.py`: MERGE-LOG over array-structured
-replica state (paper SA, Alg 4), as the vectorized engine runs it.
+"""Port of `repro/core/recovery.py`: crash vectors and MERGE-LOG (paper
+SA, Alg 3-4).
 
-The list-of-entries `merge_logs` oracle and the crash-vector helpers of the
-event backend are not ported with the vectorized data plane.
+Pure functions over replica state: the event replicas
+(`repro_torch.core.replica`) run the crash-vector helpers and the
+list-of-entries `merge_logs`; `merge_logs_vectorized` is the same MERGE-LOG
+over array-structured replica state, as the vectorized engine runs it.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import numpy as np
+
+from repro_torch.core.messages import LogEntry, ViewChange
+
+
+def aggregate_crash_vectors(cvs: Sequence[Sequence[int]]) -> tuple:
+    """Element-wise max over crash vectors (Alg 3 AGGREGATE)."""
+    assert cvs, "aggregate of empty crash-vector set"
+    n = len(cvs[0])
+    return tuple(max(cv[i] for cv in cvs) for i in range(n))
+
+
+def check_crash_vector(local_cv: Sequence[int], sender: int, msg_cv: Sequence[int]) -> bool:
+    """Alg 3 CHECK-CRASH-VECTOR: False -> potential stray message (reject).
+
+    The caller must aggregate on True (we return the decision only; callers
+    update local state so the accept path stays explicit).
+    """
+    return not (msg_cv[sender] < local_cv[sender])
+
+
+def merge_logs(view_changes: Sequence[ViewChange], f: int,
+               stats: Optional[dict] = None) -> list[LogEntry]:
+    """MERGE-LOG (Alg 4 lines 73-89): rebuild the new leader's log.
+
+    1. Consider only messages with the largest last-normal-view.
+    2. Copy entries up to the largest sync-point among them verbatim.
+    3. Beyond the sync-point, keep entries present in >= ceil(f/2)+1 of the
+       *qualified* logs.
+    4. Sort by (deadline, client-id, request-id).
+
+    view_changes must contain >= f+1 messages (incl. the new leader's own).
+    ``stats``, when given, is incremented in place: ``recovered_entries``
+    (candidates beyond the copied prefix that made the merged log) and
+    ``dropped_speculative`` (candidates rejected -- sub-majority or behind
+    the authoritative prefix).
+    """
+    assert len(view_changes) >= f + 1
+    lnv_max = max(m.last_normal_view for m in view_changes)
+    qualified = [m for m in view_changes if m.last_normal_view == lnv_max]
+    # Largest sync-point (a count of synced entries) among qualified replicas.
+    best = max(qualified, key=lambda m: m.sync_point)
+    new_log: list[LogEntry] = list(best.log[: best.sync_point])
+    synced_deadline = new_log[-1].deadline if new_log else -math.inf
+    synced_uids = {e.key3 for e in new_log}
+
+    # Candidate entries beyond the copied prefix, from all qualified logs.
+    threshold = math.ceil(f / 2) + 1
+    counts: dict = {}
+    entry_by_key: dict = {}
+    dropped = 0
+    for m in qualified:
+        for e in m.log:
+            if e.key3 in synced_uids:
+                continue  # already in the copied prefix
+            if e.deadline < synced_deadline:
+                # Strictly before the synced prefix but not in it: cannot be
+                # committed (the prefix is authoritative); drop.
+                dropped += 1
+                continue
+            counts[e.key3] = counts.get(e.key3, 0) + 1
+            entry_by_key.setdefault(e.key3, e)
+    recovered = 0
+    for key3, cnt in counts.items():
+        if cnt >= threshold:
+            new_log.append(entry_by_key[key3])
+            recovered += 1
+        else:
+            dropped += 1
+
+    new_log.sort(key=lambda e: (e.deadline, e.client_id, e.request_id))
+    if stats is not None:
+        stats["recovered_entries"] = stats.get("recovered_entries", 0) + recovered
+        stats["dropped_speculative"] = stats.get("dropped_speculative", 0) + dropped
+    return new_log
+
+
 
 
 def pack_uids(cid: np.ndarray, rid: np.ndarray) -> np.ndarray:
@@ -82,4 +161,10 @@ def merge_logs_vectorized(
     return merge_order, keep
 
 
-__all__ = ["merge_logs_vectorized", "pack_uids", "qualified_replicas"]
+def highest_view(replies: Sequence) -> int:
+    return max(m.view_id for m in replies)
+
+
+__all__ = ["aggregate_crash_vectors", "check_crash_vector", "merge_logs",
+           "merge_logs_vectorized", "pack_uids", "qualified_replicas",
+           "highest_view"]

@@ -1,5 +1,6 @@
-"""Port of `repro/sim`: the network model, the workload driver, the
-scenario catalog and the commit-trace checkers."""
+"""Port of `repro/sim`: the discrete-event scheduler, the network model,
+the workload driver, the scenario catalog and the commit-trace checkers."""
+from repro_torch.sim.events import Event, EventScheduler
 from repro_torch.sim.network import (
     CloudNetwork,
     NetworkParams,
@@ -30,6 +31,8 @@ from repro_torch.sim.trace import (
 from repro_torch.sim.workload import Workload, WorkloadDriver
 
 __all__ = [
+    "Event",
+    "EventScheduler",
     "CloudNetwork",
     "NetworkParams",
     "lis_length",

@@ -46,16 +46,18 @@ One entry point runs any scenario:
 `run_scenario` builds the protocol's config from the scenario (environment
 fields + overrides that the config class actually declares), schedules the
 fault events through `Cluster.schedule_fault`, drives the workload, and
-returns a `ScenarioResult` with one fixed summary schema. The run goes on
-the card unless the caller passes ``device="cpu"`` (the plain versions of
-the DOM kernels), as `VectorizedConfig.device` does. The port registers
-one backend, ``nezha-vectorized``; any other name fails in the registry
-with the names that are available. Fault events the backend cannot model
-(a `GroupFault` on a single-group backend: a multi-group scenario runs its
-single-group projection) are skipped and counted in
-``ScenarioResult.skipped_faults`` instead of raising mid-run.
-`VectorizedNezhaCluster.schedule_fault` resolves the events' node
-selectors through `_link_nodes` and `_clock_targets` below.
+returns a `ScenarioResult` with one fixed summary schema. Any registered
+name runs (`repro_torch.core.registry`); an unknown one fails in the
+registry with the names that are available. The vectorized backends run
+on the card unless the caller passes ``device="cpu"`` (the plain versions
+of the DOM kernels), as `VectorizedConfig.device` does; the event-driven
+backends (``nezha``, ``nezha-nonproxy``, the baselines) run on the host,
+whatever ``device`` says. Fault events a backend cannot model (a
+`GroupFault` on a single-group backend, a crash on a baseline, a clock
+fault where there are no per-node clocks) are skipped and counted in
+``ScenarioResult.skipped_faults`` instead of raising mid-run. The
+backends' ``schedule_fault`` resolve the events' node selectors through
+`_link_nodes` and `_clock_targets` below.
 """
 from __future__ import annotations
 
@@ -690,7 +692,7 @@ SCENARIO_RESULT_KEYS = (
 class ScenarioResult:
     """Uniform scenario-run summary. ``tier`` is the compute tier
     (``torch-cuda`` or ``torch-cpu``; ``"event"`` for a discrete-event
-    backend, none of which is ported); ``raw`` keeps
+    backend, whose ``epochs`` is 0: it has no epoch approximation); ``raw`` keeps
     the backend's full `summary()` dict for backend-specific extras.
 
     ``applied_faults`` counts events the backend ACCEPTED AND SCHEDULED,
@@ -699,13 +701,16 @@ class ScenarioResult:
     never executes -- cataloged scenarios always place fault times inside
     the horizon (enforced by `_validate_scenario`).
 
-    ``view_changes`` is the highest view entered by the recovery pipeline;
+    ``view_changes`` is the highest view entered (the event replicas'
+    counter and the vectorized recovery pipeline agree on it);
     ``recovered_entries``/``dropped_speculative`` count what the view
     changes' MERGE-LOG kept/discarded beyond the synced prefix (0 on
     backends without a recovery pipeline).
 
     Fault-exposure counters: ``partition_epochs``/``gray_link_epochs``
-    count the epochs the run spent under an active partition/gray fault.
+    count how long the run spent under an active partition/gray fault --
+    epochs on the vectorized backends, completed fault windows on the event
+    backends (which have no epochs).
     ``invariant_violations`` is the number of findings the paired
     adversarial trace checkers raised (filled by
     `repro_torch.sim.trace.run_scenario_with_trace`; 0 when the run was
@@ -1143,13 +1148,14 @@ def make_scenario_cluster(protocol_name: str, scenario: Union[str, Scenario],
     callers that need custom probing drive the cluster themselves;
     `run_scenario` is the one-call path.
 
-    ``device`` ("cuda" or "cpu") pins where the engine runs; None keeps the
-    config's own (`VectorizedConfig.device`: the card)."""
+    ``device`` ("cuda" or "cpu") pins where a vectorized engine runs; None
+    keeps the config's own (`VectorizedConfig.device`: the card). Event
+    configs have no device and ignore it."""
     from repro_torch.core.registry import make_cluster
 
     sc = resolve_scenario(scenario)
     cfg = config if config is not None else build_config(protocol_name, sc)
-    if device is not None and cfg.device != device:
+    if device is not None and getattr(cfg, "device", device) != device:
         cfg = replace(cfg, device=device)
     cluster = make_cluster(protocol_name, cfg, **kw)
     skipped = []

@@ -63,12 +63,13 @@ each cross-group op, at which pre-stamped global deadline) -- checked by:
                             with global deadline order wherever two
                             multi-ops share >= 2 groups.
 
-The checkers are plain numpy over trace data. The port records traces from
-its two backends, ``nezha-vectorized`` (`CommitTrace.from_vectorized_cluster`)
-and ``nezha-sharded`` (`ShardedTrace.from_sharded_cluster`); the event
-backend (ROADMAP B6) is not ported, so `from_cluster` raises for it.
+The checkers are plain numpy over trace data. `CommitTrace.from_cluster`
+dispatches on the backend: ``nezha-vectorized``
+(`CommitTrace.from_vectorized_cluster`), ``nezha-sharded``
+(`ShardedTrace.from_sharded_cluster`) and the event-driven Nezha backends
+(`CommitTrace.from_event_cluster`: ``nezha``, ``nezha-nonproxy``).
 `run_scenario_with_trace` is the one-call form; like `run_scenario` it runs
-on the card unless passed ``device="cpu"``.
+the vectorized backends on the card unless passed ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -145,9 +146,10 @@ class CommitTrace:
             return cls.from_vectorized_cluster(cluster)
         if cluster.backend == "sharded":
             return ShardedTrace.from_sharded_cluster(cluster)
+        if cluster.backend == "event":
+            return cls.from_event_cluster(cluster)
         raise NotImplementedError(
-            f"no trace builder for the {cluster.backend!r} backend: the "
-            "event-driven backends are not ported yet (ROADMAP B6)")
+            f"no trace builder for the {cluster.backend!r} backend")
 
     @classmethod
     def from_vectorized_cluster(cls, cluster) -> "CommitTrace":
@@ -178,6 +180,75 @@ class CommitTrace:
         cs = getattr(cluster.engine, "clocksync", None)
         if cs is not None:
             tr.sync = cs.evidence_columns()
+        return tr
+
+    @classmethod
+    def from_event_cluster(cls, cluster) -> "CommitTrace":
+        # client-observed deliveries
+        t, cid, rid, fast = [], [], [], []
+        for c in cluster.clients:
+            for req_id, rec in c.records.items():
+                if np.isfinite(rec.commit_time):
+                    t.append(rec.commit_time)
+                    cid.append(c.id)
+                    rid.append(req_id)
+                    fast.append(rec.fast_path)
+        commits = {"t": np.asarray(t, np.float64),
+                   "cid": np.asarray(cid, np.int64),
+                   "rid": np.asarray(rid, np.int64),
+                   "fast": np.asarray(fast, bool),
+                   "recovered": np.zeros(len(t), bool)}
+        # durable log: the most advanced live NORMAL replica (the leader in
+        # steady state); during an outage, the most advanced replica at all
+        ref = max(cluster.replicas,
+                  key=lambda r: (r.alive, r.view_id, len(r.synced)))
+        kcls_intern: dict = {}
+        deadline, lcid, lrid, kcls = [], [], [], []
+        for e in ref.synced:
+            keys = tuple(e.request.keys) if e.request is not None else ()
+            if not keys:
+                k = -1
+            else:
+                k = kcls_intern.setdefault(keys, len(kcls_intern))
+            deadline.append(e.deadline)
+            lcid.append(e.client_id)
+            lrid.append(e.request_id)
+            kcls.append(k)
+        n = len(deadline)
+        log = {"deadline": np.asarray(deadline, np.float64),
+               "cid": np.asarray(lcid, np.int64),
+               "rid": np.asarray(lrid, np.int64),
+               "kcls": np.asarray(kcls, np.int64),
+               "view": np.zeros(n, np.int64),
+               "batch": np.zeros(n, np.int64),
+               "recovered": np.zeros(n, bool)}
+        tr = cls(protocol=cluster.protocol, backend="event", tier="event",
+                 log=log, commits=commits, order_scope="log")
+        audit = getattr(cluster, "_stamp_audit", None)
+        if audit:
+            tr.stamps = {
+                "pid": np.asarray([p for p, _ in audit], np.int64),
+                "doff": np.asarray([d for _, d in audit], np.float64)}
+        tr.durability = list(getattr(cluster, "_durability_events", ()))
+        # Split-brain evidence compares only logs that claim authority NOW:
+        # honest replicas in the highest view, plus divergent ones (which
+        # claim NORMAL in a stale view they refuse to leave). A lagging
+        # replica mid-catch-up is excluded -- its stale pre-MERGE-LOG tail
+        # legitimately differs positionally (the view change re-sorts the
+        # speculative suffix by deadline) and the protocol is repairing it.
+        reps = [r for r in getattr(cluster, "replicas", ()) if r.alive]
+        honest = [r for r in reps if not getattr(r, "divergent", False)]
+        vmax = max((r.view_id for r in honest), default=0)
+        tr.replica_logs = {
+            r.id: {"cid": np.asarray([e.client_id for e in r.synced], np.int64),
+                   "rid": np.asarray([e.request_id for e in r.synced], np.int64)}
+            for r in reps
+            if getattr(r, "divergent", False) or r.view_id == vmax}
+        if hasattr(cluster, "net_windows"):
+            tr.net_windows = cluster.net_windows()
+        sync = getattr(cluster, "sync", None)
+        if sync is not None and getattr(sync, "_modeled", False):
+            tr.sync = sync.evidence_columns()
         return tr
 
 

@@ -148,7 +148,10 @@ def test_config_from_reference_round_trips_every_field():
 def test_registry_and_summary_schema():
     from repro_torch.core.registry import _coerce_config
 
-    assert available_clusters() == ("nezha-vectorized", "nezha-sharded")
+    assert available_clusters() == (
+        "nezha", "nezha-nonproxy", "nezha-vectorized", "nezha-sharded",
+        "multipaxos", "raft", "fastpaxos", "nopaxos", "nopaxos-optim",
+        "domino", "toq-epaxos", "unreplicated")
     promoted = _coerce_config(CommonConfig(f=2, n_clients=5),
                               VectorizedConfig)
     assert isinstance(promoted, VectorizedConfig)

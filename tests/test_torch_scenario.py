@@ -257,9 +257,12 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(
 
 
 def test_other_protocols_fail_with_the_available_names():
+    """Names the port does not register (the reference's tier-pinned ones)
+    fail in the registry, listing the names it has."""
     for entry in (PS.run_scenario, PS.build_config):
-        with pytest.raises(KeyError, match="available: nezha-vectorized"):
-            entry("nezha", "intra-zone")
+        with pytest.raises(KeyError, match="available: nezha, nezha-nonproxy,"
+                           " nezha-vectorized, nezha-sharded, multipaxos"):
+            entry("nezha-vectorized-jit", "intra-zone")
     assert registry.config_class(PROTOCOL) is VectorizedConfig
 
 

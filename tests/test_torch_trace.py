@@ -238,9 +238,15 @@ def test_assert_forms_and_equivalence_match_the_reference():
 
 
 def test_unported_backends_raise_naming_the_roadmap_item():
-    """The event backend (B6) is not ported: its trace builder raises. The
-    sharded backend is (B4): `from_cluster` records its `ShardedTrace`."""
-    with pytest.raises(NotImplementedError, match="B6"):
+    """`from_cluster` raises, naming the backend, for one it has no builder
+    for. The event backends are ported: their builder is
+    `from_event_cluster` (held against the reference's in
+    tests/test_torch_event_scenario.py). The sharded backend records its
+    `ShardedTrace`."""
+    with pytest.raises(NotImplementedError, match="'quantum'"):
+        PT.CommitTrace.from_cluster(types.SimpleNamespace(backend="quantum"))
+    with pytest.raises(AttributeError, match="clients"):
+        # dispatched to the event builder, which reads the clients' records
         PT.CommitTrace.from_cluster(types.SimpleNamespace(backend="event"))
     from repro_torch.core import ShardedConfig, make_cluster
     from repro_torch.sim.workload import Workload, WorkloadDriver
