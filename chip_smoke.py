@@ -172,10 +172,34 @@ Phases (any failure exits non-zero):
      vectorized run: one launch of each kernel per epoch with requests),
      and Fig 9's "full" point (f 1, 3 proxies, 10 clients x 2000 req/s,
      0.25 s) on `nezha` and `nezha-nonproxy` (host code), with walls.
+ 14. training (`repro_torch.train`, `launch/train.py`): first each LM
+     kernel's autograd Function (the forward launches the kernel, the
+     backward is the plain version's) against autograd of the plain version
+     at phase 5's and phase 7's shapes -- the gradients must be equal,
+     exactly; then tinyllama-1.1b and mamba2-130m at full width, random from
+     seed 0: 4 `make_train_step(microbatches=2)` steps each on B 8 x S 2048
+     packed synthetic tokens (`repro_torch.data`, seed 0) with the
+     reference's defaults (remat "full", AdamW, float32 master weights,
+     bf16 compute), every launch count reset just before each step and read
+     just after (flash_attention 22 x 2 microbatches x 2 -- the forward and
+     its recompute -- = 88 a step, all on the tensor cores; ssd_scan 24 x 2
+     x 2 = 96), step s, tokens/s, peak GB, loss and grad norm, all finite;
+     one step's gradients of each model at B 1 x S 512 through the kernels
+     and through their plain versions (every leaf has one, wq/wk/wv or the
+     mixer's in_proj nonzero in every layer; float32 compute gated at a
+     relative L2 difference of 1e-2 per leaf, bf16 compute -- tinyllama's
+     tensor-core route -- at 1.5 times the plain version's own bf16 noise
+     per leaf, plain bf16 against plain float32); and
+     `examples/train_100m_torch.py`'s drill at its defaults (8 x 512
+     transformer, 200 steps of 8 x 256, checkpoints every 50 through the
+     replicated metadata log, a new Trainer restored at step 100 from the
+     log's latest committed manifest, every leaf bit for bit, the loss
+     falling).
 The last lines are the kernels' JSON record (the DOM records also carry
 phase 10's launches by route, phase 11's batched rows and launches and
 phase 13's cross-check launches, flash_attention and ssd_scan phase 12's
-launches and attention rows, flash_attention phase 13's launches),
+launches and attention rows, flash_attention phase 13's launches,
+flash_attention and ssd_scan phase 14's launches and C1 gates),
 the nvidia-smi line and {"ok": true, "device": {...}}. The script imports
 nothing of JAX or `repro`.
 
@@ -183,7 +207,8 @@ nothing of JAX or `repro`.
 card half of phase 4 twice -- once to warm, once under `torch.profiler`
 (device time by kernel, device busy share of the wall time) and cProfile
 (where the host time goes) -- and then one prefill and a few serving ticks
-of phases 6, 8 and 12's configurations under `torch.profiler`. Profiling
+of phases 6, 8 and 12's configurations and one phase-14 tinyllama-1.1b
+train step under `torch.profiler`. Profiling
 slows the run; the plain run's wall times are the ones phases 4, 6, 8 and
 12 print.
 """
@@ -2174,6 +2199,457 @@ def drive_fig9() -> dict:
     return out
 
 
+# Phase 14: training on the card (`repro_torch.train`, `launch/train.py`).
+# tinyllama-1.1b and mamba2-130m at full width, random from seed 0, on the
+# reference's packed synthetic tokens, with the reference's step defaults
+# (remat "full", AdamW, float32 master weights and moments, bf16 compute).
+TRAIN_ARCHS = {"tinyllama-1.1b": "flash_attention", "mamba2-130m": "ssd_scan"}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 2048, 4, 2
+C1_SEQ = 512              # the C1 gate's model step: B 1 x S 512
+C1_SEED = 14              # its tokens
+# The C1 model gate's limits sit between what it reads on sound kernels
+# and on kernels made wrong on purpose (`scripts/c1_gate_readings.py`, an
+# H100, token seeds 14-16): float32, relative L2 a leaf, sound <= 9.8e-4
+# (mamba2's A_log), wrong >= 0.14; bf16, a leaf's kernels-vs-plain gap
+# over the plain version's own bf16-vs-float32 gap, sound <= 1.07, wrong
+# 2.0-26 (a lost state handoff reads 1.09 there: mamba2's bf16 gradients
+# are noise on random weights, and the float32 limit holds the scan).
+C1_REL_L2 = 1e-2
+C1_BF16_X = 1.5
+C1_NONZERO = {"tinyllama-1.1b": (("attn", "wq"), ("attn", "wk"),
+                                 ("attn", "wv")),
+              "mamba2-130m": (("mamba", "in_proj"),)}
+
+
+def kernel_modules() -> dict:
+    from repro_torch.kernels import dom_admit as admit_mod
+    from repro_torch.kernels import dom_release as release_mod
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import inchash as inchash_mod
+    from repro_torch.kernels import ssd_scan as ssd
+
+    return {"flash_attention": fa, "ssd_scan": ssd, "dom_admit": admit_mod,
+            "dom_release": release_mod, "inchash": inchash_mod}
+
+
+def reset_counts() -> None:
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    mods["flash_attention"].launches_tensor_core = 0
+    mods["flash_attention"].launches_scalar = 0
+
+
+def read_counts() -> dict:
+    mods = kernel_modules()
+    out = {k: m.launches for k, m in mods.items()}
+    out["flash_attention_tensor_core"] = \
+        mods["flash_attention"].launches_tensor_core
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels(names):
+    """The named kernels' CUDA wrappers swapped for their plain versions
+    (as phases 6, 8 and 12 swap them)."""
+    mods = kernel_modules()
+    saved = {k: getattr(mods[k], f"{k}_cuda") for k in names}
+    for k in names:
+        setattr(mods[k], f"{k}_cuda", getattr(mods[k], f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(mods[k], f"{k}_cuda", fn)
+
+
+def c1_op_gradients(dev) -> dict:
+    """Phase 14 (c), op level: each kernel's autograd Function against
+    autograd of its plain version at phase 5's shape (flash_attention, B 2,
+    S 4096, 32/4 heads of 64, causal, bf16) and phase 7's (ssd_scan, b 2,
+    S 4096, H 24, P 64, N 128, x/B/C bf16, dt float32, both outputs
+    weighted; phase 7's input distribution): the gradients must be equal,
+    exactly (the backward is the plain version's); the forwards within
+    phase 5's tolerance (absolute) and phase 7's (|got - want| <= tol +
+    tol |want|)."""
+    import torch
+
+    mods = kernel_modules()
+    fa, ssd = mods["flash_attention"], mods["ssd_scan"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def grads(fn, inputs, weights):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+        g = torch.autograd.grad(loss, leaves)
+        return outs[0].detach(), g
+
+    cases = {
+        "flash_attention": (
+            lambda *a: fa.flash_attention_autograd(*a, causal=True),
+            lambda *a: fa.flash_attention_plain(*a, causal=True),
+            (rnd(2, 4096, 32, 64), rnd(2, 4096, 4, 64), rnd(2, 4096, 4, 64)),
+            (rnd(2, 4096, 32, 64, dtype=torch.float32),), FA_TOL["bfloat16"],
+            0.0),
+        "ssd_scan": (
+            lambda *a: ssd.ssd_scan_autograd(*a, chunk=128),
+            lambda *a: ssd.ssd_scan_plain(*a, chunk=128),
+            (rnd(2, 4096, 24, 64),
+             rnd(2, 4096, 24, dtype=torch.float32).abs() * 0.3 + 0.01,
+             -rnd(24, dtype=torch.float32).abs() - 0.1,
+             rnd(2, 4096, 128), rnd(2, 4096, 128)),
+            (rnd(2, 4096, 24, 64, dtype=torch.float32),
+             rnd(2, 24, 128, 64, dtype=torch.float32)), SSD_TOL["bfloat16"],
+            SSD_TOL["bfloat16"]),
+    }
+    out = {}
+    for name, (kern, plain, inputs, weights, tol, rel) in cases.items():
+        reset_counts()
+        y_k, g_k = grads(kern, inputs, weights)
+        launched = read_counts()[name]
+        y_p, g_p = grads(plain, inputs, weights)
+        torch.cuda.synchronize()
+        diff = (y_k.float() - y_p.float()).abs()
+        err = float(diff.max().cpu())
+        excess = float((diff - rel * y_p.float().abs()).max().cpu())
+        exact = all(a.dtype == b.dtype and bool(torch.equal(a, b))
+                    for a, b in zip(g_k, g_p))
+        out[name] = {"forward_max_abs_err": err, "grads_equal": exact,
+                     "launches": launched, "tol": tol, "rel_tol": rel}
+        if not (exact and excess <= tol and launched == 1):
+            raise RuntimeError(f"C1 op gate, {name}: {out[name]}")
+        del y_k, g_k, y_p, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves_by_path(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves_by_path(v, path + (k,)))
+        return out
+    return {path: tree}
+
+
+def _rel_l2(got: dict, want: dict) -> dict:
+    """Relative L2 difference of each leaf of ``got`` from ``want``."""
+    import torch
+
+    return {"/".join(p): float((torch.linalg.vector_norm(
+        (got[p] - want[p]).float()) / torch.linalg.vector_norm(
+        want[p].float()).clamp_min(1e-30)).cpu()) for p in want}
+
+
+def c1_gradients(dev, name: str) -> dict:
+    """One step's gradients of ``name`` at full width (B 1 x S C1_SEQ,
+    tokens from C1_SEED, parameters from seed 0, remat "full") through the
+    kernels and through their plain versions, in float32 and in bf16
+    compute. Returns, a leaf each, the relative L2 differences: kernels
+    vs plain in float32 (``float32``) and in bf16 (``bf16``), and the
+    plain version's own bf16 noise, plain bf16 vs plain float32
+    (``witness``); beside them each run's launch counts, and whether the
+    kernels' gradients are finite and the attention's wq/wk/wv (the
+    mixer's in_proj) nonzero in every layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, make_loss_fn
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = get_config(name)
+    kernel = TRAIN_ARCHS[name]
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = np.random.default_rng(C1_SEED).integers(0, cfg.vocab,
+                                                     (1, C1_SEQ))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+
+    def grads() -> dict:
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = make_loss_fn(cfg)(leaves, batch)
+        flat = _leaves_by_path(leaves)
+        got = torch.autograd.grad(loss, list(flat.values()))
+        return dict(zip(flat, got))
+
+    out = {"launches": {}, "nonzero_every_layer": True, "finite": True}
+    plain32 = None
+    for dtype in ("float32", "bfloat16"):
+        with compute_dtype(dtype):
+            reset_counts()
+            g_kern = grads()
+            torch.cuda.synchronize()
+            out["launches"][dtype] = read_counts()
+            with plain_kernels((kernel,)):
+                g_plain = grads()
+        out["leaves"] = len(g_kern)
+        out["nonzero_every_layer"] &= all(
+            bool((g_kern[("layers",) + leaf].flatten(1) != 0).any(1).all()
+                 .cpu()) for leaf in C1_NONZERO[name])
+        out["finite"] &= all(bool(torch.isfinite(g).all().cpu())
+                             for g in g_kern.values())
+        if dtype == "float32":
+            out["float32"] = _rel_l2(g_kern, g_plain)
+            plain32 = g_plain
+        else:
+            out["bf16"] = _rel_l2(g_kern, g_plain)
+            out["witness"] = _rel_l2(g_plain, plain32)
+        del g_kern, g_plain
+    del params, plain32
+    torch.cuda.empty_cache()
+    return out
+
+
+def c1_model_gate(dev, name: str) -> dict:
+    """Phase 14 (c), model level (`c1_gradients`): every leaf has a
+    gradient, finite, the attention's wq/wk/wv (the mixer's in_proj)
+    nonzero in every layer, the kernel launched once a layer in the
+    forward and once in the recompute (in bf16 on tinyllama's tensor
+    cores); in float32 the kernels' gradients within C1_REL_L2 (relative
+    L2) of the plain versions' in every leaf, and in bf16 within
+    C1_BF16_X times the plain version's own bf16 noise in every leaf."""
+    from repro_torch.configs import get_config
+
+    r = c1_gradients(dev, name)
+    kernel = TRAIN_ARCHS[name]
+    want = 2 * get_config(name).n_layers
+    ratio = {k: r["bf16"][k] / max(r["witness"][k], 1e-30) for k in r["bf16"]}
+    f32_leaf = max(r["float32"], key=r["float32"].get)
+    bf16_leaf = max(ratio, key=ratio.get)
+    out = {"leaves": r["leaves"], "launches": want,
+           "float32_max_rel_l2": r["float32"][f32_leaf],
+           "float32_leaf": f32_leaf, "bf16_max_ratio": ratio[bf16_leaf],
+           "bf16_leaf": bf16_leaf, "bf16_rel_l2": r["bf16"][bf16_leaf],
+           "bf16_witness": r["witness"][bf16_leaf],
+           "bf16_max_rel_l2": max(r["bf16"].values())}
+    launched = [r["launches"][d][kernel] for d in r["launches"]]
+    if kernel == "flash_attention":
+        launched.append(r["launches"]["bfloat16"][
+            "flash_attention_tensor_core"])
+    if not (launched == [want] * len(launched) and r["finite"]
+            and r["nonzero_every_layer"]
+            and out["float32_max_rel_l2"] <= C1_REL_L2
+            and out["bf16_max_ratio"] <= C1_BF16_X):
+        raise RuntimeError(f"C1 model gate, {name}: {out}, launches "
+                           f"{r['launches']}, finite {r['finite']}, nonzero "
+                           f"{r['nonzero_every_layer']}")
+    return out
+
+
+def drive_train(dev, name: str) -> dict:
+    """Phase 14 (a, b): TRAIN_STEPS `make_train_step(microbatches=2)`
+    steps of ``name`` at full width on B 8 x S 2048 packed synthetic
+    tokens (`repro_torch.data`, seed 0), with every launch count reset just
+    before each step and read just after: the kernel once a layer and
+    microbatch in the forward and once in its recompute, nothing else."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg = get_config(name)
+    kernel = TRAIN_ARCHS[name]
+    want = {k: 0 for k in kernel_modules()}
+    want[kernel] = cfg.n_layers * TRAIN_MICRO * 2
+    if kernel == "flash_attention":
+        want["flash_attention_tensor_core"] = want[kernel]
+    else:
+        want["flash_attention_tensor_core"] = 0
+    data = SyntheticTokenDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg, microbatches=TRAIN_MICRO)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "step_s": [], "loss": [],
+           "grad_norm": [], "lr": [], "launches": []}
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": torch.as_tensor(data.batch_at(i)["tokens"],
+                                           device=dev)}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        vals = torch.stack([metrics["loss"], metrics["grad_norm"],
+                            metrics["lr"]]).cpu().numpy()
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append(read_counts())
+        for key, v in zip(("loss", "grad_norm", "lr"), vals):
+            out[key].append(float(v))
+        if out["launches"][-1] != want:
+            raise RuntimeError(f"{name} train step {i} launched "
+                               f"{out['launches'][-1]}, not {want}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["want"] = want
+    out["params"] = sum(p.numel() for p in _leaves_by_path(
+        state.params).values())
+    if not (np.isfinite(out["loss"]).all()
+            and np.isfinite(out["grad_norm"]).all()
+            and all(bool(torch.isfinite(p).all().cpu())
+                    for p in _leaves_by_path(state.params).values())):
+        raise RuntimeError(f"{name} training is not finite: {out}")
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_line(name: str, r: dict) -> str:
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = sorted(r["step_s"][1:])
+    med = warm[len(warm) // 2]
+    return (f"{name} training ({r['params']} parameters, B {TRAIN_BATCH} x "
+            f"S {TRAIN_SEQ}, microbatches {TRAIN_MICRO}, remat full; init "
+            f"{r['init_s']:.2f} s): step s "
+            f"{json.dumps([round(s, 4) for s in r['step_s']])} (median of "
+            f"steps 2-{TRAIN_STEPS} {med:.4f} s, {tokens / med:.0f} tokens/s), "
+            f"peak {r['peak_gb']:.2f} GB, loss "
+            f"{json.dumps([round(x, 4) for x in r['loss']])}, grad norm "
+            f"{json.dumps([round(x, 4) for x in r['grad_norm']])}, launches a "
+            f"step {json.dumps(r['launches'][-1])}")
+
+
+def drive_drill(dev) -> dict:
+    """Phase 14 (d): `examples/train_100m_torch.py`'s kill-and-restore
+    drill at its defaults on the card, the launch counts reset just before
+    and read just after; its checkpoints are removed afterwards."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    path = Path(__file__).resolve().parent / "examples" / \
+        "train_100m_torch.py"
+    spec = importlib.util.spec_from_file_location("train_100m_torch", path)
+    drill = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drill)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        r = drill.run_drill(device=str(dev), quiet=True)
+    finally:
+        shutil.rmtree(drill.DEFAULT_CKPT, ignore_errors=True)
+    torch.cuda.synchronize()
+    r["wall_s"] = time.perf_counter() - t0
+    r["launches"] = read_counts()
+    cfg = drill.config_100m()
+    want = 200 * cfg.n_layers * 2 * 2   # steps x layers x microbatches x 2
+    if r["launches"]["flash_attention"] != want:
+        raise RuntimeError(f"the drill launched {r['launches']}, not "
+                           f"{want} flash_attention")
+    torch.cuda.empty_cache()
+    return r
+
+
+def drive_training(dev) -> dict:
+    """Phase 14: C1's op gate, the two full-width train runs, C1's model
+    gate, the drill; returns their results and prints a line each."""
+    t_phase = time.perf_counter()
+    out = {"c1_ops": c1_op_gradients(dev)}
+    for name, r in out["c1_ops"].items():
+        print(f"C1 op gate, {name} (phase {5 if name == 'flash_attention' else 7}"
+              f"'s shape, bf16): gradients through the autograd Function == "
+              f"autograd of the plain version, exactly; forward max abs err "
+              f"{r['forward_max_abs_err']:.3g} (tolerance {r['tol']} + "
+              f"{r['rel_tol']} |want|); "
+              f"{r['launches']} launch")
+    out["train"] = {}
+    for name in TRAIN_ARCHS:
+        out["train"][name] = drive_train(dev, name)
+        print(train_line(name, out["train"][name]))
+    out["c1_model"] = {}
+    for name in TRAIN_ARCHS:
+        r = out["c1_model"][name] = c1_model_gate(dev, name)
+        print(f"C1 model gate, {name} (B 1 x S {C1_SEQ}, kernels vs plain "
+              f"versions, {r['leaves']} leaves, every one with a gradient, "
+              f"{'/'.join(x[-1] for x in C1_NONZERO[name])} nonzero in every "
+              f"layer, {r['launches']} launches a run): float32 max relative "
+              f"L2 {r['float32_max_rel_l2']:.3g} ({r['float32_leaf']}; the "
+              f"gate {C1_REL_L2}); bf16 at most {r['bf16_max_ratio']:.3g} "
+              f"times the plain version's own bf16 noise ({r['bf16_leaf']}: "
+              f"{r['bf16_rel_l2']:.3g} vs plain bf16 against plain float32 "
+              f"{r['bf16_witness']:.3g}; the gate {C1_BF16_X}x), bf16 max "
+              f"relative L2 {r['bf16_max_rel_l2']:.3g}")
+    d = out["drill"] = drive_drill(dev)
+    print(f"train_100m_torch drill ({d['params']} parameters, 200 steps of "
+          f"8 x 256, microbatches 2, checkpoints every 50 through the "
+          f"replicated log): restored at step {d['restored_at']} (log "
+          f"{json.dumps(d['log_committed'])}), every leaf bit for bit; loss "
+          f"{d['losses'][0]:.4f} -> {d['losses'][-1]:.4f}; steps 1-100 "
+          f"{d['first_half_s']:.2f} s, restore {d['restore_s']:.2f} s, steps "
+          f"101-200 {d['second_half_s']:.2f} s; flash_attention launches "
+          f"{d['launches']['flash_attention']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 14 wall {out['wall_s']:.1f} s")
+    return out
+
+
+def training_record(training: dict, kernel: str) -> dict:
+    """Phase 14's launch counts of ``kernel`` for the kernels' record: a
+    train step of the model that runs it, the C1 gates, the drill."""
+    name = next(n for n, k in TRAIN_ARCHS.items() if k == kernel)
+    out = {"model": name,
+           "launches_per_step": training["train"][name]["launches"][-1][
+               kernel],
+           "c1_op": training["c1_ops"][kernel],
+           "c1_model_float32_max_rel_l2": training["c1_model"][name][
+               "float32_max_rel_l2"],
+           "c1_model_bf16_max_ratio": training["c1_model"][name][
+               "bf16_max_ratio"]}
+    if kernel == "flash_attention":
+        out["drill_launches"] = training["drill"]["launches"][kernel]
+    return out
+
+
+def profile_train_step(dev) -> None:
+    """`--profile`: one tinyllama-1.1b train step (phase 14's) under
+    torch.profiler after a warm one: device time by kernel, busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg = get_config("tinyllama-1.1b")
+    data = SyntheticTokenDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0))
+    state = make_train_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg, microbatches=TRAIN_MICRO)
+    batch = {"tokens": torch.as_tensor(data.batch_at(0)["tokens"],
+                                       device=dev)}
+    state, _ = step(state, batch)                     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"profiled tinyllama-1.1b train step (B {TRAIN_BATCH} x S "
+          f"{TRAIN_SEQ}, microbatches {TRAIN_MICRO}): wall {wall * 1e3:.2f} "
+          f"ms (profiler on), device kernels {busy_us / 1e3:.2f} ms, busy "
+          f"share {busy_us / 1e6 / wall:.3f}")
+    print(events.table(sort_by="self_device_time_total", row_limit=20))
+    del state, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2233,6 +2709,7 @@ def main() -> int:
         profile_main_path(rate, duration)
         for arch, (n_layers, *_) in LM_PATHS.items():
             profile_lm_path(dev, arch, n_layers)
+        profile_train_step(dev)
         return 0
 
     # -- 3. kernels vs plain versions ------------------------------------------
@@ -2524,6 +3001,9 @@ def main() -> int:
               f"{r['wall_s']:.3f} s ({r['wall_per_sim_s']:.2f} s per "
               f"simulated s)")
 
+    # -- 14. training on the card ----------------------------------------------
+    training = drive_training(dev)
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -2603,7 +3083,8 @@ def main() -> int:
         "family_shapes": [{k: r.get(k) for k in (
             "label", "shape", "route", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "scalar_ms", "tflops")}
-            for r in fam_rows]})
+            for r in fam_rows],
+        "training": training_record(training, "flash_attention")})
     r = ssd_main["bfloat16"]
     ssd_keys = ("max_abs_err", "state_max_abs_err", "ms", "graph_ms",
                 "plain_ms", "bound_ms", "bound_by")
@@ -2620,7 +3101,8 @@ def main() -> int:
         "float32": {k: ssd_main["float32"][k] for k in ssd_keys},
         "prefill_32k": {k: ssd_32k[k] for k in ssd_keys},
         "families": {name: r["launches"]["ssd_scan"]
-                     for name, r in families.items()}})
+                     for name, r in families.items()},
+        "training": training_record(training, "ssd_scan")})
     record["kernels"].append({
         "name": "inchash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/inchash.cu",

@@ -22,6 +22,7 @@ from repro_torch.core.dom import (
     LateBuffer,
     OwdEstimator,
 )
+from repro_torch.core.engine import DomEngine, PendingBuffer
 from repro_torch.core.hashing import IncrementalHash, PerKeyHashTable
 from repro_torch.core.messages import OpType, Request, Status
 from repro_torch.core.protocol import ClusterConfig, NezhaCluster
@@ -43,7 +44,11 @@ from repro_torch.core.replica import (
     ReplicaParams,
     StateMachine,
 )
-from repro_torch.core.sharded import ShardedConfig, ShardedNezhaCluster
+from repro_torch.core.sharded import (
+    ShardedConfig,
+    ShardedNezhaCluster,
+    make_sharded,
+)
 from repro_torch.core.vectorized_cluster import (
     VectorizedConfig,
     VectorizedNezhaCluster,
@@ -54,12 +59,13 @@ __all__ = ["Clock", "ClockParams", "SyncService",
            "SUMMARY_REQUIRED_KEYS", "Cluster", "CommonConfig",
            "summarize_commits",
            "DomParams", "DomReceiver", "DomSender", "EarlyBuffer",
-           "LateBuffer", "OwdEstimator",
+           "LateBuffer", "OwdEstimator", "DomEngine", "PendingBuffer",
            "IncrementalHash", "PerKeyHashTable",
            "OpType", "Request", "Status",
            "ClusterConfig", "NezhaCluster",
            "VectorizedConfig", "VectorizedNezhaCluster",
-           "ShardedConfig", "ShardedNezhaCluster", "config_from_reference",
+           "ShardedConfig", "ShardedNezhaCluster", "make_sharded",
+           "config_from_reference",
            "make_cluster", "available_clusters", "config_class",
            "QuorumTracker", "fast_quorum_size", "slow_quorum_size",
            "leader_of_view",

@@ -39,6 +39,7 @@ Tensors move host -> device once per epoch (or window) and back once.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -1078,9 +1079,14 @@ class DomEngine:
     """
 
     def __init__(self, cfg, net, n_replicas: int):
-        if getattr(cfg, "sanitize", False):
+        if getattr(cfg, "sanitize", False) \
+                or os.environ.get("REPRO_SANITIZE", "") not in ("", "0"):
+            # the reference wraps its tier in the sanitizer on either
+            # switch; until the sanitizer is ported, neither may pass
+            # silently
             raise NotImplementedError(
-                "the runtime invariant sanitizer is not ported yet")
+                "the runtime invariant sanitizer is not ported yet "
+                "(cfg.sanitize or REPRO_SANITIZE)")
         self.cfg = cfg
         self.net = net
         self.n = n_replicas

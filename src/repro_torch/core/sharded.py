@@ -483,4 +483,8 @@ class ShardedNezhaCluster(Cluster):
         return states
 
 
-__all__ = ["ShardedConfig", "ShardedNezhaCluster"]
+def make_sharded(cfg: ShardedConfig, **kw) -> ShardedNezhaCluster:
+    return ShardedNezhaCluster(cfg, **kw)
+
+
+__all__ = ["ShardedConfig", "ShardedNezhaCluster", "make_sharded"]

@@ -29,7 +29,9 @@ So a CUDA call takes one of two kernels (``kernel_route``):
 The plain version is the dense O(S Sk) computation of the same function
 (float32 scores [B, Hk, G, S, Sk]). The wrapper dispatches on the
 tensor's device: a CPU tensor takes the plain version, a CUDA tensor
-launches a kernel (or raises).
+launches a kernel (or raises). When the call needs gradients, the launch
+goes through `_FlashAttentionFn`, whose backward is the plain version's;
+otherwise the kernel is launched directly.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import needs_grad, plain_grads
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 128)
@@ -180,16 +183,48 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """The kernel under autograd. The forward launches it (the output is
+    written through ctypes, so it carries no graph of its own); the backward
+    recomputes the plain version from the saved q, k, v -- only those, not
+    the plain version's dense [B, Hk, G, S, Sk] graph -- and returns
+    autograd's gradients of it. The reference has no backward kernel
+    either: its gradients are jnp autodiff of the same function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
+        return flash_attention_cuda(q, k, v, **ctx.masks)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*plain_grads(flash_attention_plain, ctx.saved_tensors,
+                             grad_out, ctx.masks), None, None, None)
+
+
+def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             q_offset: int = 0) -> torch.Tensor:
+    """`flash_attention_cuda` with gradients: the kernel's forward, the
+    plain version's backward (`_FlashAttentionFn`)."""
+    return _FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """Attention; the plain version on CPU, the kernel on CUDA."""
+    """Attention; the plain version on CPU, the kernel on CUDA -- under
+    autograd when the call needs gradients (`needs_grad`), else launched
+    directly."""
     _check(q, k, v)
+    masks = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
+        return flash_attention_plain(q, k, v, **masks)
+    if needs_grad(q, k, v):
+        return flash_attention_autograd(q, k, v, **masks)
+    return flash_attention_cuda(q, k, v, **masks)
 
 
 def attention_flops(B: int, S: int, Sk: int, Hq: int, D: int, *,
@@ -206,5 +241,5 @@ def attention_flops(B: int, S: int, Sk: int, Hq: int, D: int, *,
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
-           "kernel_route", "tensor_map_args", "attention_mask",
-           "attention_flops", "NEG_INF"]
+           "flash_attention_autograd", "kernel_route", "tensor_map_args",
+           "attention_mask", "attention_flops", "NEG_INF"]

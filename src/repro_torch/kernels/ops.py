@@ -1,9 +1,11 @@
 """Entry points over the CUDA kernels and their plain versions.
 
 Port of `repro/kernels/ops.py`.
-`attention` and `ssd_scan` are the dispatches the model's prefill calls: a
+`attention` and `ssd_scan` are the dispatches the model's forward calls: a
 CPU tensor runs the plain version, a CUDA tensor launches the
-flash-attention or the SSD-scan kernel. The DOM tensor forms
+flash-attention or the SSD-scan kernel -- through an autograd Function
+whose backward is the plain version's when the call needs gradients
+(training), directly otherwise (prefill, serving). The DOM tensor forms
 (`dom_admit_device`, `dom_deadline_order_device`; `repro`'s ``*_traced``
 forms) take and return tensors on the caller's device and are what the
 fused epoch body calls: a CPU tensor runs the plain version, a CUDA tensor
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dom_admit import dom_admit as _admit
-from repro_torch.kernels.dom_release import dom_release
+from repro_torch.kernels.dom_release import dom_release, dom_release_plain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.inchash import _check as _check_columns
 from repro_torch.kernels.inchash import inchash as _inchash
@@ -63,6 +65,15 @@ def dom_admit(deadlines, arrivals, *, device="cuda") -> np.ndarray:
     d = torch.as_tensor(np.asarray(deadlines, np.float64), device=dev)
     a = torch.as_tensor(np.asarray(arrivals, np.float64), device=dev)
     return _admit(d, a).cpu().numpy()
+
+
+def dom_release_ref_order(deadlines, admitted, clock_now):
+    """Oracle for dom_release: the masked stable argsort by deadline (its
+    plain version) of float64 ``deadlines`` and bool ``admitted`` at
+    ``clock_now``: (order, -1 padded, int32; count)."""
+    return dom_release_plain(torch.as_tensor(deadlines, dtype=torch.float64),
+                             torch.as_tensor(admitted, dtype=torch.bool),
+                             clock_now)
 
 
 def dom_deadline_order_device(deadlines: torch.Tensor) -> torch.Tensor:
@@ -124,6 +135,7 @@ def inchash(deadline_ns, client_id, request_id, *,
     return h, prefix
 
 
-__all__ = ["resolve_device", "attention", "ssd_scan", "dom_admit", "dom_admit_device", "dom_release",
+__all__ = ["resolve_device", "attention", "ssd_scan", "dom_admit",
+           "dom_admit_device", "dom_release", "dom_release_ref_order",
            "dom_deadline_order", "dom_deadline_order_device", "inchash",
            "inchash_device"]

@@ -1,14 +1,15 @@
-"""Oracles for the port's LM and hash kernels.
+"""Oracles for the port's kernels.
 
-Port of the attention, SSD and hash parts of `repro/kernels/ref.py`: the
-correctness references that the kernel tests hold `flash_attention`,
-`ssd_scan` and `inchash` against.
+Port of `repro/kernels/ref.py`: the correctness references that the
+kernel tests hold `flash_attention`, `ssd_scan`, `dom_release` and
+`inchash` against.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.hashing import entry_hash32_torch, prefix_hashes_torch
+from repro_torch.kernels.dom_admit import dom_admit_plain
 from repro_torch.models.attention import reference_attention
 
 
@@ -37,6 +38,25 @@ def ssd_scan_ref(x, dt, A, B, C):
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
+def dom_release_ref(deadlines, arrivals, clock_now):
+    """Early-buffer release set + order for ONE receiver at ``clock_now``.
+
+    deadlines/arrivals: float64 [N]. A message is admitted by the DOM
+    entrance check (`dom_admit_plain`) and released iff admitted and its
+    deadline <= clock_now. Returns (released [N] bool, ranks [N] int32 =
+    release rank in deadline order, or -1)."""
+    admitted = dom_admit_plain(deadlines, arrivals[:, None])[:, 0]
+    released = admitted & (deadlines <= clock_now)
+    key = torch.where(released, deadlines, torch.inf)
+    order = torch.sort(key, stable=True).indices
+    n_rel = released.sum()
+    seq = torch.arange(deadlines.shape[0], device=deadlines.device)
+    ranks = torch.full(deadlines.shape, -1, dtype=torch.int32,
+                       device=deadlines.device)
+    ranks[order] = torch.where(seq < n_rel, seq, -1).to(torch.int32)
+    return released, ranks
+
+
 def inchash_ref(deadline_ns, client_id, request_id):
     """Per-entry 32-bit hashes + prefix XOR folds (fast-reply hashes), as
     int64 tensors holding the 32-bit patterns."""
@@ -44,4 +64,5 @@ def inchash_ref(deadline_ns, client_id, request_id):
     return h, prefix_hashes_torch(h)
 
 
-__all__ = ["flash_attention_ref", "ssd_scan_ref", "inchash_ref"]
+__all__ = ["flash_attention_ref", "ssd_scan_ref", "dom_release_ref",
+           "inchash_ref"]

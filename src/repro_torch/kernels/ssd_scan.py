@@ -25,7 +25,8 @@ once and y and h written once, at 3.35 TB/s.
 The plain version follows the reference's chunked arithmetic
 (`repro/models/ssm.py::ssd_chunked` without D). The wrapper dispatches on
 the tensors' device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernels (or raises).
+launches the kernels (or raises) -- through `_SsdScanFn`, whose backward
+is the plain version's, when the call needs gradients.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import needs_grad, plain_grads
 
 NEG_INF = -1e30
 CHUNK_MAX = 128      # largest chunk the kernel takes
@@ -163,13 +165,43 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+class _SsdScanFn(torch.autograd.Function):
+    """The kernels under autograd. The forward launches them; the backward
+    recomputes the plain version from the saved inputs and returns
+    autograd's gradients of both outputs (y, h_final) for all five inputs
+    -- a missing gradient of h counts as zeros. The reference has no
+    backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        return (*plain_grads(ssd_scan_plain, ctx.saved_tensors,
+                             (grad_y, grad_h), {"chunk": ctx.chunk}), None)
+
+
+def ssd_scan_autograd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128):
+    """`ssd_scan_cuda` with gradients: the kernels' forward, the plain
+    version's backward (`_SsdScanFn`)."""
+    return _SsdScanFn.apply(x, dt, A, B, C, chunk)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128):
-    """The scan; the plain version on CPU, the kernel on CUDA.
-    Returns (y [b, S, H, P] in x's dtype, h [b, H, N, P] float32)."""
+    """The scan; the plain version on CPU, the kernel on CUDA -- under
+    autograd when the call needs gradients (`needs_grad`), else launched
+    directly. Returns (y [b, S, H, P] in x's dtype, h [b, H, N, P]
+    float32)."""
     _check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    if needs_grad(x, dt, A, B, C):
+        return ssd_scan_autograd(x, dt, A, B, C, chunk=chunk)
     return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
 
 
@@ -195,5 +227,6 @@ def ssd_scan_bytes(b: int, S: int, H: int, P: int, N: int, *, x_size: int,
             + 2 * b * S * N * bc_size + 4 * b * H * N * P)
 
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_cuda", "ssd_scan_flops",
+__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_cuda", "ssd_scan_autograd",
+           "ssd_scan_flops",
            "ssd_scan_bytes", "CHUNK_MAX", "STATE_MAX"]

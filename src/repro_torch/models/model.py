@@ -1,10 +1,10 @@
-"""Model API: parameters, KV cache, prefill and decode.
+"""Model API: parameters, the training loss, KV cache, prefill and decode.
 
-Port of `repro/models/model.py` (all but the training loss). Parameters
-are the reference's nested dict with stacked [n_layers, ...] leaves, as
-float32 tensors; `params_from_reference` carries a tree of the
-reference's numpy arrays across. Entry points run on the card unless
-the caller passes ``device="cpu"``.
+Port of `repro/models/model.py`. Parameters are the reference's nested
+dict with stacked [n_layers, ...] leaves, as float32 tensors;
+`params_from_reference` carries a tree of the reference's numpy arrays
+across, `train_state_from_reference` a whole training state. Entry points
+run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -26,6 +26,12 @@ def _map_shapes(shapes, fn, path=()):
     if isinstance(shapes, dict):
         return {k: _map_shapes(v, fn, path + (k,)) for k, v in shapes.items()}
     return fn(path, shapes)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.float32) -> dict:
+    """The parameter tree as meta tensors (shape and dtype, no storage)."""
+    return _map_shapes(tf.param_shapes(cfg), lambda p, s: torch.empty(
+        tuple(s), dtype=dtype, device="meta"))
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
@@ -67,6 +73,38 @@ def params_from_reference(tree, *, device="cuda") -> dict:
     return torch.as_tensor(np.array(tree, dtype=np.float32), device=dev)
 
 
+def _tensor_from_reference(arr, dev) -> torch.Tensor:
+    """A reference array as a tensor on ``dev``: bf16 (numpy's
+    ml_dtypes bfloat16, the reference's bf16 optimizer moments) stays
+    bf16, anything else becomes float32."""
+    if str(getattr(arr, "dtype", "")) == "bfloat16":
+        f32 = np.array(arr, dtype=np.float32)
+        return torch.as_tensor(f32, device=dev).to(torch.bfloat16)
+    return torch.as_tensor(np.array(arr, dtype=np.float32), device=dev)
+
+
+def train_state_from_reference(state, *, device="cuda"):
+    """The reference's `TrainState` (its leaves as numpy arrays: params,
+    ``opt.m``, ``opt.v``, ``opt.step``) as the port's: params float32,
+    the moments in their own type (float32, or bf16 for a bf16
+    optimizer), the step an int32 scalar, on ``device``."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor_from_reference(tree, dev)
+
+    step = torch.as_tensor(np.array(state.opt.step, dtype=np.int32),
+                           device=dev)
+    return TrainState(params=params_from_reference(state.params, device=dev),
+                      opt=AdamWState(step=step, m=conv(state.opt.m),
+                                     v=conv(state.opt.v)))
+
+
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Total parameter count (embeddings + blocks + head); with
     ``active_only``, the expert weights count top_k / n_experts of
@@ -85,6 +123,47 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 
     _map_shapes(tf.param_shapes(cfg), add)
     return total
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def make_loss_fn(cfg: ArchConfig):
+    """Returns loss_fn(params, batch) -> (loss, metrics).
+
+    batch: {"tokens": [B, S]} (+ "frontend" [B, F, d] for the vision
+    model, + "src" [B, Ssrc, d] for the encoder-decoder), moved to the
+    parameters' device. The loss is the mean next-token NLL over the text
+    positions after any frontend (log-softmax in float32) plus 0.01 times
+    the MoE load-balancing loss; metrics: "loss", "aux_loss" and
+    "ntokens" (the number of predicted tokens, a Python int)."""
+
+    def loss_fn(params, batch):
+        tokens = _on(batch["tokens"], params, torch.int64)
+        if cfg.enc_dec:
+            enc_x = tf.encoder_forward(params, _on(batch["src"], params),
+                                       cfg)
+            ekv = tf.cross_kv(params, enc_x, cfg)
+            hidden, aux = tf.decoder_forward(params, tokens, cfg,
+                                             enc_kv=ekv)
+            n_front = 0
+        else:
+            frontend = batch.get("frontend")
+            if frontend is not None:
+                frontend = _on(frontend, params)
+            hidden, aux = tf.decoder_forward(params, tokens, cfg,
+                                             frontend=frontend)
+            n_front = 0 if frontend is None else frontend.shape[1]
+        logits = tf.logits_from_hidden(params, hidden, cfg)
+        # next-token prediction on the text positions only
+        pred = logits[:, n_front:-1]
+        tgt = tokens[:, 1:]
+        logp = torch.log_softmax(pred.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        loss = nll.mean() + 0.01 * aux
+        return loss, {"loss": loss, "aux_loss": aux, "ntokens": tgt.numel()}
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +298,11 @@ def make_prefill(cfg: ArchConfig):
 
 
 __all__ = [
+    "abstract_params",
     "init_params",
     "params_from_reference",
+    "train_state_from_reference",
+    "make_loss_fn",
     "count_params",
     "abstract_cache",
     "zero_cache",

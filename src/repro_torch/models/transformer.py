@@ -11,8 +11,10 @@ A vision frontend (phi-3-vision) is precomputed patch embeddings put
 before the text.
 
 Parameters are stacked with a leading [n_layers] axis, as in the
-reference; the forward passes walk the layers with a Python loop (no
-activation checkpointing: the port runs forward passes only). Every
+reference; the forward passes walk the layers with a Python loop. While
+autograd records them (training), each block runs under the config's
+activation checkpointing (`cfg.remat`, as the reference's `_maybe_remat`);
+prefill and decode run the blocks directly. Every
 prefill attention -- causal self-attention, with a sliding window where
 the config has one, the encoder's non-causal self-attention and the
 decoder's cross-attention -- goes through the flash-attention kernel, and
@@ -23,7 +25,14 @@ as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
@@ -248,6 +257,45 @@ def learned_positions(table: torch.Tensor, start: int,
     return table[start:start + size]
 
 
+# the products whose outputs remat="dots" keeps (the reference's
+# `dots_saveable`: every dot_general)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _maybe_remat(fn, params: dict, cfg: ArchConfig):
+    """Port of the reference's `_maybe_remat`
+    (`repro/models/transformer.py:268-278`): ``fn`` (one block) under
+    activation checkpointing while autograd records the forward -- grad
+    mode on and a parameter requiring grad -- else ``fn`` itself.
+    ``"full"`` saves only the block's inputs and recomputes the block in
+    the backward (the kernels launch again there); ``"dots"`` also keeps
+    the outputs of the matrix products (`_DOT_OPS`); ``"none"``
+    checkpoints nothing."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, not "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in _leaves(params))):
+        return fn
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def encoder_forward(params: dict, src_embeds: torch.Tensor,
                     cfg: ArchConfig) -> torch.Tensor:
     """Seamless encoder over precomputed frame embeddings [b, S, d]
@@ -255,14 +303,18 @@ def encoder_forward(params: dict, src_embeds: torch.Tensor,
     x = src_embeds.to(layers.CDT)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][:x.shape[1]].to(x.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        lp = layer_params(params["enc_layers"], i)
+
+    def block(x, lp):
         h = apply_norm(x, lp["ln1"], cfg.norm)
         q, k, v = _project_qkv(h, lp["attn"], cfg)
         o = attn.flash_attention(q, k, v, causal=False, window=None)
         x = x + _wo(o.reshape(*o.shape[:2], -1), lp["attn"])
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + apply_mlp(h2, lp["mlp"], cfg.mlp)
+        return x + apply_mlp(h2, lp["mlp"], cfg.mlp)
+
+    run = _maybe_remat(block, params, cfg)
+    for i in range(cfg.n_enc_layers):
+        x = run(x, layer_params(params["enc_layers"], i))
     return apply_norm(x, params["enc_final_norm"], cfg.norm)
 
 
@@ -291,13 +343,17 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
         x = x + learned_positions(params["pos_embed"], pos_offset, S).to(
             x.dtype)[None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+
+    def block(x, lp, enc):
         if cfg.family == "ssm":
-            x, _ = mamba_block(x, lp, cfg)
-            continue
+            return mamba_block(x, lp, cfg)[0], 0.0
+        y, _, layer_aux = dense_block(x, lp, cfg, positions, enc_out=enc)
+        return y, layer_aux
+
+    run = _maybe_remat(block, params, cfg)
+    for i in range(cfg.n_layers):
         enc = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
-        x, _, layer_aux = dense_block(x, lp, cfg, positions, enc_out=enc)
+        x, layer_aux = run(x, layer_params(params["layers"], i), enc)
         if cfg.family == "moe":
             aux = aux + layer_aux
     return apply_norm(x, params["final_norm"], cfg.norm), aux

@@ -1,3 +1,5 @@
-"""Serving: KV-cache slots and the continuous-batching engine.
-Port of `repro/serving` (single replica; the replicated service waits for
-the event-driven backend)."""
+"""Serving: KV-cache slots, the continuous-batching engine and the
+Nezha-replicated LM service. Port of `repro/serving`."""
+from repro_torch.serving.engine import ReplicatedLMService, ServingEngine
+
+__all__ = ["ServingEngine", "ReplicatedLMService"]

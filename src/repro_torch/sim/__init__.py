@@ -28,7 +28,12 @@ from repro_torch.sim.trace import (
     check_trace,
     run_scenario_with_trace,
 )
-from repro_torch.sim.workload import Workload, WorkloadDriver
+from repro_torch.sim.workload import (
+    ClosedLoopWorkload,
+    OpenLoopWorkload,
+    Workload,
+    WorkloadDriver,
+)
 
 __all__ = [
     "Event",
@@ -39,6 +44,8 @@ __all__ = [
     "reordering_score",
     "Workload",
     "WorkloadDriver",
+    "OpenLoopWorkload",
+    "ClosedLoopWorkload",
     "Environment",
     "Scenario",
     "ScenarioResult",

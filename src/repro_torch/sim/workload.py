@@ -1,6 +1,8 @@
-"""Port of `repro/sim/workload.py`: open- and closed-loop workloads (S9.1)
-and the `WorkloadDriver` that injects either shape into a cluster through
-the unified submit/submit_at/run_for/summary surface.
+"""Port of `repro/sim/workload.py`: open- and closed-loop workloads (S9.1:
+`OpenLoopWorkload`, `ClosedLoopWorkload`, `RequestRecord`,
+`summarize_latencies`) and the `WorkloadDriver` that injects either
+shape into a cluster through the unified submit/submit_at/run_for/summary
+surface.
 
 Open loop: requests arrive per a Poisson process regardless of replies.
 Closed loop: a client resubmits when its previous request commits; the
@@ -10,12 +12,78 @@ vectorized engine fires ``on_commit`` while flushing each epoch with
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 from repro_torch.core.hashing import key_group_np
 from repro_torch.core.messages import OpType
+
+
+@dataclass
+class RequestRecord:
+    client_id: int
+    request_id: int
+    submit_time: float
+    commit_time: float = float("nan")
+    fast_path: bool = False
+    retries: int = 0
+
+    @property
+    def latency(self) -> float:
+        return self.commit_time - self.submit_time
+
+
+class OpenLoopWorkload:
+    """Poisson arrivals at `rate` req/s per client; multiple outstanding."""
+
+    def __init__(self, n_clients: int, rate_per_client: float, seed: int = 0):
+        self.n_clients = n_clients
+        self.rate = rate_per_client
+        self.rng = np.random.default_rng(seed)
+
+    def arrival_times(self, duration: float) -> list[tuple[float, int]]:
+        """(time, client_id) tuples, time-sorted."""
+        out: list[tuple[float, int]] = []
+        for c in range(self.n_clients):
+            t = 0.0
+            while True:
+                t += self.rng.exponential(1.0 / self.rate)
+                if t > duration:
+                    break
+                out.append((t, c))
+        out.sort()
+        return out
+
+    def arrival_array(self, duration: float) -> tuple[np.ndarray, np.ndarray]:
+        arr = self.arrival_times(duration)
+        if not arr:
+            return np.zeros(0), np.zeros(0, dtype=np.int64)
+        t, c = zip(*arr)
+        return np.asarray(t), np.asarray(c, dtype=np.int64)
+
+
+class ClosedLoopWorkload:
+    """Back-to-back requests; think time ~0. Driven by the event simulator:
+    the protocol under test calls `on_commit(client_id)` and we immediately
+    issue the next request via the `submit` callback."""
+
+    def __init__(self, n_clients: int, submit: Callable[[int], None],
+                 think_time: float = 0.0, seed: int = 0):
+        self.n_clients = n_clients
+        self.submit = submit
+        self.think_time = think_time
+        self.rng = np.random.default_rng(seed)
+
+    def start(self) -> None:
+        for c in range(self.n_clients):
+            self.submit(c)
+
+    def on_commit(self, client_id: int, schedule_after: Callable[[float, Callable[[], None]], None]) -> None:
+        if self.think_time > 0:
+            schedule_after(self.rng.exponential(self.think_time), lambda: self.submit(client_id))
+        else:
+            self.submit(client_id)
 
 
 def zipf_key(rng: np.random.Generator, n_keys: int, theta: float) -> int:
@@ -40,6 +108,24 @@ def route_keys(keys, n_groups: int) -> np.ndarray:
     NOT the builtin ``hash()``, so group assignment is identical across
     PYTHONHASHSEED values and process restarts."""
     return key_group_np(np.asarray(keys, dtype=np.uint64), n_groups)
+
+
+def summarize_latencies(records: list[RequestRecord]) -> dict:
+    lat = np.asarray([r.latency for r in records if np.isfinite(r.commit_time)])
+    committed = int(np.isfinite([r.commit_time for r in records]).sum())
+    fast = sum(1 for r in records if r.fast_path and np.isfinite(r.commit_time))
+    out = {
+        "n": len(records),
+        "committed": committed,
+        "fast_commit_ratio": fast / max(committed, 1),
+    }
+    if lat.size:
+        out.update(
+            median_latency=float(np.median(lat)),
+            p90_latency=float(np.percentile(lat, 90)),
+            mean_latency=float(lat.mean()),
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -156,4 +242,6 @@ class WorkloadDriver:
         return s
 
 
-__all__ = ["Workload", "WorkloadDriver", "zipf_key", "route_keys"]
+__all__ = ["RequestRecord", "OpenLoopWorkload", "ClosedLoopWorkload",
+           "summarize_latencies", "Workload", "WorkloadDriver", "zipf_key",
+           "route_keys"]

@@ -1263,3 +1263,125 @@ def test_small_route_cluster_sizes_match_the_wrappers_mirror(dev):
         assert rel(n) == adm(n) == want, n
     assert [release_mod.small_route_blocks(n) for n in (977, 3907, 15625)] \
         == [1, 4, 16]
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd (the C1 repair) and a train step
+# ---------------------------------------------------------------------------
+def _grads_both_ways(fn_kernel, fn_plain, inputs, weights):
+    """Gradients of sum(w * out) through the kernel's autograd Function
+    and through autograd of the plain version, same inputs and weights."""
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in inputs]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+        return [o.detach() for o in outs], torch.autograd.grad(loss, leaves)
+    return grads(fn_kernel), grads(fn_plain)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_grads_are_the_plain_versions_on_the_card(dev,
+                                                                  dtype):
+    """Phase 5's shape (B 2, S 4096, 32/4 heads of 64, causal): the
+    Function's forward is the kernel's and its gradients are autograd's of
+    the plain version, exactly."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(2, 4096, 32, 64, generator=gen, device=dev).to(dt)
+    k = torch.randn(2, 4096, 4, 64, generator=gen, device=dev).to(dt)
+    v = torch.randn(2, 4096, 4, 64, generator=gen, device=dev).to(dt)
+    w = torch.randn(2, 4096, 32, 64, generator=gen, device=dev)
+    before = fa_mod.launches
+    (out_k, g_k), (out_p, g_p) = _grads_both_ways(
+        fa_mod.flash_attention_autograd, fa_mod.flash_attention_plain,
+        (q, k, v), (w,))
+    assert fa_mod.launches == before + 1
+    tol = {"bfloat16": 2e-2, "float32": 2e-5}[dtype]
+    assert float((out_k[0].float() - out_p[0].float()).abs().max()) <= tol
+    for a, b in zip(g_k, g_p):
+        assert a.dtype == dt and torch.equal(a, b)
+    # the wrapper takes the Function when the inputs require grad
+    assert fa_mod.flash_attention(q.requires_grad_(), k, v).grad_fn \
+        is not None
+
+
+def test_ssd_scan_grads_are_the_plain_versions_on_the_card(dev):
+    """Phase 7's shape (b 2, S 4096, H 24, P 64, N 128, chunk 128; x, B, C
+    bf16, dt float32; phase 7's input distribution), both outputs
+    weighted: every input's gradient is autograd's of the plain version,
+    exactly; the forward within phase 7's tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, S, H, P, N = 2, 4096, 24, 64, 128
+    x = torch.randn(b, S, H, P, generator=gen, device=dev).bfloat16()
+    dt = torch.randn(b, S, H, generator=gen, device=dev).abs() * 0.3 + 0.01
+    A = -torch.randn(H, generator=gen, device=dev).abs() - 0.1
+    B = torch.randn(b, S, N, generator=gen, device=dev).bfloat16()
+    C = torch.randn(b, S, N, generator=gen, device=dev).bfloat16()
+    wy = torch.randn(b, S, H, P, generator=gen, device=dev)
+    wh = torch.randn(b, H, N, P, generator=gen, device=dev)
+    before = ssd_mod.launches
+    (outs_k, g_k), (outs_p, g_p) = _grads_both_ways(
+        lambda *a: ssd_mod.ssd_scan_autograd(*a, chunk=128),
+        lambda *a: ssd_mod.ssd_scan_plain(*a, chunk=128),
+        (x, dt, A, B, C), (wy, wh))
+    assert ssd_mod.launches == before + 1
+    diff = (outs_k[0].float() - outs_p[0].float()).abs()
+    assert float((diff - 5e-2 * outs_p[0].float().abs()).max()) <= 5e-2
+    for a, c in zip(g_k, g_p):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(dev, arch,
+                                                      monkeypatch):
+    """One `make_train_step` update (microbatches 2, remat "full") at the
+    card tests' smoke sizes (two layers at full width: the kernels' head
+    dims) in float32 compute from the same state on the card and on
+    the CPU: the kernel launches twice a layer and microbatch (the forward
+    and its recompute), and every parameter and moment agrees within 1e-4
+    of each leaf's largest |value| -- 1e-3 for mamba2-130m, whose float32
+    scan kernel holds 2e-4 against its plain version where the attention's
+    holds 2e-5."""
+    import repro_torch.models.layers as tl
+    import repro_torch.models.model as tm
+    from repro_torch.configs import smoke_config
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    for mod in (tl, tm):
+        monkeypatch.setattr(mod, "CDT", torch.float32)
+    full = {"tinyllama-1.1b": dict(n_heads=32, n_kv_heads=4, head_dim=64,
+                                   d_model=512, d_ff=1024),
+            "mamba2-130m": dict(d_model=768, ssm_state=128, ssm_headdim=64,
+                                ssm_chunk=128)}[arch]
+    cfg = smoke_config(arch, n_layers=2, vocab=1024, **full)
+    state = make_train_state(cfg, seed=0, device="cpu")
+    state = state._replace(opt=state.opt._replace(
+        step=torch.tensor(150, dtype=torch.int32)))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 64)))
+    step = make_train_step(cfg, microbatches=2)
+    new_cpu, m_cpu = step(state, {"tokens": tokens})
+    on_card = tree_map(lambda t: t.to(dev), state.params)
+    card_state = type(state)(params=on_card, opt=type(state.opt)(
+        step=state.opt.step.to(dev), m=tree_map(lambda t: t.to(dev),
+                                                state.opt.m),
+        v=tree_map(lambda t: t.to(dev), state.opt.v)))
+    mod = ssd_mod if cfg.family == "ssm" else fa_mod
+    tol = 1e-3 if cfg.family == "ssm" else 1e-4
+    mod.launches = 0
+    new_card, m_card = step(card_state, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert mod.launches == cfg.n_layers * 2 * 2
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(m_card[key]) - float(m_cpu[key])) <= \
+            tol * abs(float(m_cpu[key]))
+    for got, want in ((new_card.params, new_cpu.params),
+                      (new_card.opt.m, new_cpu.opt.m),
+                      (new_card.opt.v, new_cpu.opt.v)):
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.isfinite(a).all()
+            err = float((a.cpu() - b).abs().max())
+            assert err <= tol * float(b.abs().max()) + 1e-12

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: no module under src/repro_torch/ and not
-chip_smoke.py imports JAX or any module of the reference package `repro`
-(the port keeps its own copy of whatever it needs from there)."""
+"""Import hygiene of the port: no module under src/repro_torch/, not
+chip_smoke.py and not the example it drives (examples/train_100m_torch.py)
+imports JAX or any module of the reference package `repro` (the port keeps
+its own copy of whatever it needs from there)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "train_100m_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,6 +38,7 @@ def test_the_port_has_modules_to_check():
     assert "src/repro_torch/models/model.py" in names
     assert "src/repro_torch/kernels/flash_attention.py" in names
     assert "chip_smoke.py" in names
+    assert "examples/train_100m_torch.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
