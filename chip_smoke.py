@@ -195,11 +195,40 @@ Phases (any failure exits non-zero):
      replicated metadata log, a new Trainer restored at step 100 from the
      log's latest committed manifest, every leaf bit for bit, the loss
      falling).
+ 15. the rest of the data plane and the paper's applications: (a)
+     flash_attention at the reference's kernel-test shapes (B 2; D 16, 32,
+     16, 16 with window 64, and 64) in bf16 and float32 against its plain
+     version, each timed beside SDPA and its bound, the launched route
+     read from the counters (D 16 and 32 take the scalar kernel in either
+     type); (b) the one-shot primitives (`repro_torch.core.vectorized`) on
+     the card against the CPU, bit for bit: the watermark schedule,
+     `nezha_commit_times` (key classes, replica 2 dead) and
+     `classify_commits` (its own deadline order, a capped mask) at n 1e4,
+     1e5 and 1e6, R 3, with the DOM counts reset just before each call and
+     read just after (one `dom_admit` launch a schedule, one of each kernel
+     a `nezha_commit_times`, one `dom_release` a `classify_commits`), and
+     the exact oracle at n 512 against the
+     watermark schedule (no launch); (c) Figs 1-3 at `benchmarks/figs.py`'s
+     full settings (n_msgs 1e5), Fig 3's admission on the card (one
+     onesweep `dom_admit` launch a point) equal to the CPU's; (d) the
+     runtime sanitizer on phase 4's deployment, on the 28 scenarios and on
+     `nezha-sharded` G 16 batched: each bit for bit its unsanitized card
+     run of phases 4, 10 and 11, every epoch with requests checked, no
+     violation, both walls printed; (e) the example ports:
+     examples/quickstart_torch.py's `main()` once in this process on the
+     card, with the flash_attention counts reset just before and read just
+     after the two demos C4 opened (the training demo at smoke size, head
+     dim 16, 32 launches, and the kernel demo at D 32, one: every launch
+     on the scalar kernel), while replicated_serving_torch.py (on the card)
+     and fair_exchange_torch.py (host only) run as subprocesses, each
+     exiting 0.
 The last lines are the kernels' JSON record (the DOM records also carry
 phase 10's launches by route, phase 11's batched rows and launches and
 phase 13's cross-check launches, flash_attention and ssd_scan phase 12's
 launches and attention rows, flash_attention phase 13's launches,
-flash_attention and ssd_scan phase 14's launches and C1 gates),
+flash_attention and ssd_scan phase 14's launches and C1 gates, the DOM
+records phase 15's one-shot and Fig 3 launches, flash_attention phase 15's
+head-dim 16/32 rows),
 the nvidia-smi line and {"ok": true, "device": {...}}. The script imports
 nothing of JAX or `repro`.
 
@@ -523,11 +552,11 @@ def fa_smem() -> dict:
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS
 
     fn = build.library("flash_attention").flash_attention_tc_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return {D: fn(D) for D in HEAD_DIMS}
+    return {D: fn(D) for D in TC_HEAD_DIMS}
 
 
 def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
@@ -552,7 +581,7 @@ def check_attention(dev, B, S, Sk, Hq, Hk, D, dtype, causal=True,
                            f"version at {shape}: max abs err {err}")
     del want
     res = {"shape": shape, "max_abs_err": err,
-           "route": fa.kernel_route(dt)}
+           "route": fa.kernel_route(dt, D)}
     if timed:
         bound, by = attention_bound_ms(B, S, Sk, Hq, Hk, D, dtype, causal,
                                        window, q_offset)
@@ -614,7 +643,7 @@ def time_prefill_32k(dev) -> dict:
     q, k, v = attention_inputs(dev, B, S, S, Hq, Hk, D, torch.bfloat16)
     bound, by = attention_bound_ms(B, S, S, Hq, Hk, D, "bfloat16", True)
     out = {"shape": f"B{B} S{S} Hq{Hq} Hk{Hk} D{D} bfloat16 causal",
-           "route": fa.kernel_route(q.dtype),
+           "route": fa.kernel_route(q.dtype, D),
            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), 3),
            "library_ms": time_ms(sdpa_call(q, k, v, True), 3),
            "bound_ms": bound, "bound_by": by}
@@ -1260,7 +1289,8 @@ def lm_lines(name: str, r: dict) -> list:
     return lines
 
 
-def drive_main_path(device: str, rate: float, duration: float):
+def drive_main_path(device: str, rate: float, duration: float,
+                    sanitize: bool = False):
     from repro_torch.core import VectorizedConfig, make_cluster
     from repro_torch.sim.workload import Workload, WorkloadDriver
 
@@ -1269,7 +1299,7 @@ def drive_main_path(device: str, rate: float, duration: float):
     cfg = VectorizedConfig(f=1, n_clients=1, n_proxies=1, seed=0,
                            epoch_duration=10e-3, epochs_per_dispatch=16,
                            commutative=True, client_timeout=1.0,
-                           device=device)
+                           device=device, sanitize=sanitize)
     cluster = make_cluster("nezha-vectorized", cfg)
     work = Workload(mode="open", rate_per_client=rate, duration=duration,
                     read_ratio=0.5, skew=0.5, n_keys=1_000_000, seed=0)
@@ -1280,6 +1310,39 @@ def drive_main_path(device: str, rate: float, duration: float):
 
         torch.cuda.synchronize()
     return cluster, summary, time.perf_counter() - t0
+
+
+def main_path_difference(a_cl, a_sum: dict, b_cl, b_sum: dict):
+    """The first difference between two runs of the main path (summary but
+    ``tier`` and ``backend``, commit latencies, commit trace, replica
+    log), or None."""
+    import numpy as np
+
+    for key, value in a_sum.items():
+        if key in ("tier", "backend"):
+            continue
+        same = (value == b_sum[key]) or (
+            isinstance(value, float) and np.isnan(value)
+            and np.isnan(b_sum[key]))
+        if not same:
+            return f"summary[{key!r}]: {value!r} against {b_sum[key]!r}"
+    if np.concatenate(a_cl._latencies).tobytes() != \
+            np.concatenate(b_cl._latencies).tobytes():
+        return "commit latencies"
+    if len(a_cl._trace_commits) != len(b_cl._trace_commits):
+        return "commit trace length"
+    for (ta, *ua), (tb, *ub) in zip(a_cl._trace_commits,
+                                    b_cl._trace_commits):
+        if ta.tobytes() != tb.tobytes() or any(
+                np.asarray(x).tobytes() != np.asarray(y).tobytes()
+                for x, y in zip(ua, ub)):
+            return "commit trace (times, uids, fast flags)"
+    log_a = a_cl.engine.logs.log_columns()
+    log_b = b_cl.engine.logs.log_columns()
+    for col in log_a:
+        if log_a[col].tobytes() != log_b[col].tobytes():
+            return f"replica log column {col!r}"
+    return None
 
 
 def profile_main_path(rate: float, duration: float) -> None:
@@ -1482,25 +1545,30 @@ def findings(trace) -> list:
             for x in check_trace(trace) + check_adversarial(trace)]
 
 
-def card_equals_cpu(card: dict, cpu: dict) -> None:
-    """Card run == CPU run, bit for bit: every result key and raw summary
-    key but ``tier``, the commit trace, and the findings."""
+def same_runs(a: dict, b: dict, what: str) -> None:
+    """Two scenario runs equal bit for bit: every result key and raw
+    summary key but ``tier``, the commit trace, and the findings."""
     from repro_torch.sim.scenario import SCENARIO_RESULT_KEYS
 
-    name = card["res"].scenario
-    pairs = [(k, getattr(card["res"], k), getattr(cpu["res"], k))
+    name = a["res"].scenario
+    pairs = [(k, getattr(a["res"], k), getattr(b["res"], k))
              for k in SCENARIO_RESULT_KEYS if k != "tier"]
-    pairs.append(("raw", {k: v for k, v in card["res"].raw.items()
+    pairs.append(("raw", {k: v for k, v in a["res"].raw.items()
                           if k != "tier"},
-                  {k: v for k, v in cpu["res"].raw.items() if k != "tier"}))
-    pairs += [(p, getattr(card["trace"], p), getattr(cpu["trace"], p))
+                  {k: v for k, v in b["res"].raw.items() if k != "tier"}))
+    pairs += [(p, getattr(a["trace"], p), getattr(b["trace"], p))
               for p in TRACE_PARTS]
-    pairs.append(("findings", findings(card["trace"]),
-                  findings(cpu["trace"])))
-    for key, a, b in pairs:
-        d = first_difference(a, b, key)
+    pairs.append(("findings", findings(a["trace"]), findings(b["trace"])))
+    for key, x, y in pairs:
+        d = first_difference(x, y, key)
         if d is not None:
-            raise RuntimeError(f"{name}: the card and the CPU differ at {d}")
+            raise RuntimeError(f"{name}: {what} differ at {d}")
+
+
+def card_equals_cpu(card: dict, cpu: dict) -> None:
+    """Card run == CPU run, bit for bit (`same_runs`), on their tiers."""
+    name = card["res"].scenario
+    same_runs(card, cpu, "the card and the CPU")
     if card["res"].tier != "torch-cuda" or cpu["res"].tier != "torch-cpu":
         raise RuntimeError(f"{name}: tiers {card['res'].tier}, "
                            f"{cpu['res'].tier}")
@@ -1540,11 +1608,13 @@ def drive_scenarios() -> dict:
     print(f"scenario catalog ({len(sc_mod.available_scenarios())} "
           f"scenarios at their own settings; card == CPU, bit for bit):")
     paired = 0
+    card_runs = {}
     t_phase = time.perf_counter()
     for name in sc_mod.available_scenarios():
         card = run_scenario_traced(name, "cuda")
         cpu = run_scenario_traced(name, "cpu")
         card_equals_cpu(card, cpu)
+        card_runs[name] = card
         add("catalog", card["counts"])
         print(scenario_line(card, cpu))
         sc = sc_mod.get_scenario(name)
@@ -1596,7 +1666,8 @@ def drive_scenarios() -> dict:
                        "launches_by_route": card["counts"]}
     print(f"  at 1e6 req/s: DOM launches by route "
           f"{json.dumps(totals['at_1e6'])}")
-    return {"totals": totals, "walls": walls, "catalog_s": catalog_s}
+    return {"totals": totals, "walls": walls, "catalog_s": catalog_s,
+            "card_runs": card_runs}
 
 
 # Phase 11: nezha-sharded (`repro_torch.core.sharded`). The DOM kernels'
@@ -1746,11 +1817,12 @@ def sharded_workload():
 
 
 def run_deployment(name: str, G: int, device: str, batched: bool,
-                   work) -> dict:
+                   work, sanitize: bool = False) -> dict:
     """One run of the deployment: submit every request, run 2 epochs warm
     and the rest timed, with the DOM launch counts reset just before the
     run and read just after, every body dispatch probed, and (batched) the
-    per-group retry generations counted."""
+    per-group retry generations counted; ``sanitize`` switches on the
+    runtime invariant sanitizer."""
     import torch
 
     from repro_torch.core import ShardedConfig, make_cluster
@@ -1759,7 +1831,7 @@ def run_deployment(name: str, G: int, device: str, batched: bool,
     epoch = 10e-3
     duration = SHARDED_EPOCHS * epoch
     cfg = ShardedConfig(groups=G, n_clients=64, seed=0, device=device,
-                        vmap_groups=batched)
+                        vmap_groups=batched, sanitize=sanitize)
     cl = make_cluster(name, cfg)
     t0 = time.perf_counter()
     for ti, ci, ki in zip(*work):
@@ -1915,6 +1987,7 @@ def drive_sharded(dev) -> dict:
         if G == 16:
             cpu.pop("cluster")
             runs[G]["cpu"] = cpu
+            g16_state = want        # phase 15 holds its sanitized run to it
     one.pop("cluster")
 
     print("the two sharded scenarios, card == CPU (bit for bit):")
@@ -1964,7 +2037,8 @@ def drive_sharded(dev) -> dict:
             raise RuntimeError(f"{name}: a DOM kernel never launched")
         scenarios[name] = {"card_s": wg, "cpu_s": wc,
                            "launches_by_route": cg}
-    return {"batched": batched, "runs": runs, "scenarios": scenarios}
+    return {"batched": batched, "runs": runs, "scenarios": scenarios,
+            "g16_state": g16_state}
 
 
 # Phase 13: the replicated LM service at full width (random weights from
@@ -2650,6 +2724,441 @@ def profile_train_step(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 15: C4 (flash_attention at head dims 16 and 32), the one-shot DOM
+# primitives, Figs 1-3, the runtime sanitizer and the example ports.
+# The reference's kernel-test shapes (tests/test_kernels.py:30-34), B 2,
+# S = Sk: (S, Hq, Hk, D, causal, window)
+SMALL_HEAD_SHAPES = ((128, 4, 2, 16, True, None), (96, 4, 1, 32, True, None),
+                     (128, 2, 2, 16, False, None),
+                     (256, 4, 2, 16, True, 64), (64, 8, 8, 64, True, None))
+ONE_SHOT_SIZES = (10_000, 100_000, 1_000_000)
+ONE_SHOT_CALLS = ("dom_release_schedule_watermark", "nezha_commit_times",
+                  "classify_commits")
+FIG_N_MSGS = 100_000            # benchmarks/figs.py, quick=False
+# The examples phase 15 starts as subprocesses, with where each runs
+EXAMPLES = {"replicated_serving_torch.py": "on the card",
+            "fair_exchange_torch.py": "host only"}
+
+
+def check_small_heads(dev) -> list:
+    """C4: flash_attention at the reference's kernel-test shapes in both
+    types against its plain version, timed beside SDPA and the bound; one
+    more call each, with the route counters read around it, shows which
+    kernel launched (D 16 and 32 the scalar one in either type)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for S, Hq, Hk, D, causal, window in SMALL_HEAD_SHAPES:
+        for dtype in ("bfloat16", "float32"):
+            r = check_attention(dev, 2, S, S, Hq, Hk, D, dtype, causal,
+                                window, timed=True)
+            q, k, v = attention_inputs(dev, 2, S, S, Hq, Hk, D,
+                                       getattr(torch, dtype))
+            before = (fa.launches_tensor_core, fa.launches_scalar)
+            fa.flash_attention(q, k, v, causal=causal, window=window)
+            launched = ("tensor_core" if fa.launches_tensor_core > before[0]
+                        else "scalar" if fa.launches_scalar > before[1]
+                        else None)
+            want = ("tensor_core" if dtype == "bfloat16" and D >= 64
+                    else "scalar")
+            if not r["route"] == launched == want:
+                raise RuntimeError(f"flash_attention at {r['shape']}: route "
+                                   f"{r['route']}, launched {launched}, "
+                                   f"want {want}")
+            rows.append(r)
+    return rows
+
+
+def one_shot_batch(n: int, seed: int = 0):
+    """Phase 3's realistic batch at R 3 with replica 2 dead (it receives
+    and replies nothing), lognormal reply delays and 1024 key classes."""
+    import numpy as np
+
+    d, a = realistic_batch(n, 3, seed)
+    rng = np.random.default_rng(seed + 1)
+    a[:, 2] = np.inf
+    reply = rng.lognormal(np.log(50e-6), 0.5, (n, 3))
+    reply[:, 2] = np.inf
+    return d, a, reply, rng.integers(0, 1024, n)
+
+
+def drive_one_shot() -> dict:
+    """Phase 15 (b): the watermark schedule, `nezha_commit_times` and
+    `classify_commits` (its own deadline order, a capped mask) on the card
+    against the CPU, bit for bit, each call with the DOM counts reset just
+    before and read just after (the schedule one `dom_admit` launch, the
+    commit times one of each kernel, the classification one `dom_release`
+    launch); the exact oracle at n 512."""
+    import numpy as np
+
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.engine import classify_commits
+
+    rows = []
+    for n in ONE_SHOT_SIZES:
+        d, a, reply, keys = one_shot_batch(n)
+        admitted, release = vec.dom_release_schedule_watermark(
+            d, a, device="cpu")
+        slow = np.random.default_rng(n).random(n) < 0.2
+        calls = {
+            "dom_release_schedule_watermark": (
+                lambda dev: vec.dom_release_schedule_watermark(
+                    d, a, device=dev), {"dom_admit": 1, "dom_release": 0}),
+            "nezha_commit_times": (
+                lambda dev: vec.nezha_commit_times(
+                    d, a, reply, 0, 1, key_ids=keys, device=dev),
+                {"dom_admit": 1, "dom_release": 1}),
+            "classify_commits": (
+                lambda dev: classify_commits(
+                    d, a, admitted, release, reply, 0, 1, key_ids=keys,
+                    force_slow=slow, device=dev),
+                {"dom_admit": 0, "dom_release": 1})}
+        row = {"n": n}
+        for name, (call, want) in calls.items():
+            call("cuda")                                # warm
+            reset_dom_counts()
+            t0 = time.perf_counter()
+            card = call("cuda")                         # numpy: synced
+            card_s = time.perf_counter() - t0
+            counts = dom_counts()
+            t0 = time.perf_counter()
+            cpu = call("cpu")
+            cpu_s = time.perf_counter() - t0
+            diff = first_difference(card, cpu, name)
+            if diff is not None:
+                raise RuntimeError(f"{name} at n {n}: the card and the CPU "
+                                   f"differ at {diff}")
+            got = {k: sum(v.values()) for k, v in counts.items()}
+            if got != want:
+                raise RuntimeError(f"{name} at n {n}: launches {got}, want "
+                                   f"{want}")
+            row[name] = {"card_s": card_s, "cpu_s": cpu_s,
+                         "launches_by_route": counts}
+            if name == "nezha_commit_times":
+                row["committed"] = int(card["committed"].sum())
+                row["fast"] = int(card["fast"].sum())
+        rows.append(row)
+    d, a, *_ = one_shot_batch(512, seed=3)
+    reset_dom_counts()
+    exact = vec.dom_release_schedule(d, a, device="cuda")
+    if any(sum(v.values()) for v in dom_counts().values()):
+        raise RuntimeError("the exact oracle launched a kernel")
+    for label, other in (
+            ("the watermark schedule", vec.dom_release_schedule_watermark(
+                d, a, device="cuda")),
+            ("the CPU", vec.dom_release_schedule(d, a, device="cpu"))):
+        diff = first_difference(exact, other, "schedule")
+        if diff is not None:
+            raise RuntimeError(f"the exact oracle at n 512 differs from "
+                               f"{label} at {diff}")
+    return {"rows": rows}
+
+
+def drive_figs() -> dict:
+    """Phase 15 (c): Figs 1-3 at `benchmarks/figs.py`'s full settings
+    (n_msgs 1e5), the port's network and metrics; Fig 3's DOM admission on
+    the card (`dom_admit`, onesweep route at n 1e5, R 2) equal to the
+    CPU's, with the counts read around each call."""
+    import numpy as np
+
+    from repro_torch.core.vectorized import dom_reordering, multicast_reordering
+    from repro_torch.sim.network import CloudNetwork, NetworkParams
+
+    n_msgs = FIG_N_MSGS
+    out = {"fig1": [], "fig2": [], "fig3": []}
+    for rate in (1e3, 2e3, 5e3, 10e3, 20e3, 50e3):
+        net = CloudNetwork(4, NetworkParams(), seed=1)
+        sends = np.sort(np.random.default_rng(0).uniform(
+            0, n_msgs / (2 * rate), n_msgs))
+        srcs = np.random.default_rng(1).integers(0, 2, n_msgs) + 2
+        owd, _ = net.sample_owd_matrix(srcs, n_msgs, [0, 1])
+        out["fig1"].append({"rate": rate, "reordering_pct":
+                            multicast_reordering(owd, sends)})
+    for n_send in (1, 2, 5, 10, 20):
+        net = CloudNetwork(2 + n_send, NetworkParams(), seed=2)
+        dur = n_msgs / (n_send * 10_000)
+        sends = np.sort(np.random.default_rng(3).uniform(0, dur, n_msgs))
+        srcs = np.random.default_rng(4).integers(0, n_send, n_msgs) + 2
+        owd, _ = net.sample_owd_matrix(srcs, n_msgs, [0, 1])
+        out["fig2"].append({"n_senders": n_send, "reordering_pct":
+                            multicast_reordering(owd, sends)})
+    n_send = 10
+    net = CloudNetwork(2 + n_send, NetworkParams(), seed=5)
+    rng = np.random.default_rng(6)
+    sends = np.sort(rng.uniform(0, n_msgs / (n_send * 10_000), n_msgs))
+    srcs = rng.integers(0, n_send, n_msgs) + 2
+    owd, _ = net.sample_owd_matrix(srcs, n_msgs, [0, 1])
+    out["fig3"].append({"percentile": 0, "reordering_pct":
+                        multicast_reordering(owd, sends)})
+    for pctl in (50, 75, 90, 95):
+        deadlines = sends + (np.percentile(owd, pctl) + 3 * 60e-9)
+        reset_dom_counts()
+        t0 = time.perf_counter()
+        card = dom_reordering(owd, sends, deadlines, device="cuda")
+        card_s = time.perf_counter() - t0
+        counts = dom_counts()
+        t0 = time.perf_counter()
+        cpu = dom_reordering(owd, sends, deadlines, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if card != cpu or counts["dom_admit"] != {"small": 0, "onesweep": 1}:
+            raise RuntimeError(f"Fig 3 p{pctl}: card {card}, CPU {cpu}, "
+                               f"launches {json.dumps(counts)}")
+        hold = np.maximum(deadlines[:, None] - (sends[:, None] + owd),
+                          0.0).mean()
+        out["fig3"].append({"percentile": pctl, "reordering_pct": card,
+                            "hold_us": hold * 1e6, "card_s": card_s,
+                            "cpu_s": cpu_s, "launches_by_route": counts})
+    return out
+
+
+@contextlib.contextmanager
+def sanitizer_probe():
+    """Every `Sanitizer` that checked an epoch inside the block."""
+    from repro_torch.core.sanitizer import Sanitizer
+
+    seen = []
+    check = Sanitizer.check_epoch
+
+    def probed(self, s, eng):
+        check(self, s, eng)
+        if not any(x is self for x in seen):
+            seen.append(self)
+
+    Sanitizer.check_epoch = probed
+    try:
+        yield seen
+    finally:
+        Sanitizer.check_epoch = check
+
+
+def sanitizer_totals(seen: list) -> tuple[int, list]:
+    return (sum(x.epochs_checked for x in seen),
+            [v for x in seen for v in x.violations])
+
+
+def drive_sanitized(rate: float, duration: float, main_run, scen: dict,
+                    shard: dict) -> dict:
+    """Phase 15 (d): phase 4's deployment, the 28 scenarios and
+    `nezha-sharded` at G 16 batched, each with the runtime sanitizer on:
+    bit for bit its unsanitized card run of phases 4, 10 and 11, every
+    epoch with requests checked, no violation."""
+    import dataclasses
+
+    from repro_torch.sim.scenario import get_scenario
+
+    gpu_cl, gpu_sum, gpu_s = main_run
+    with sanitizer_probe() as seen:
+        cl, summ, wall = drive_main_path("cuda", rate, duration,
+                                         sanitize=True)
+    checked, bad = sanitizer_totals(seen)
+    diff = main_path_difference(gpu_cl, gpu_sum, cl, summ)
+    if diff is not None or bad or checked != summ["batches"] \
+            or seen != [cl.engine.sanitizer]:
+        raise RuntimeError(f"the sanitized main path: difference {diff}, "
+                           f"{checked} epochs checked of {summ['batches']}, "
+                           f"violations {bad[:3]}")
+    out = {"main_path": {"wall_s": wall, "unsanitized_wall_s": gpu_s,
+                         "epochs_checked": checked}}
+    print(f"phase 4's deployment sanitized on the card: {checked} epochs "
+          f"checked (= epochs with requests), no violation; bit for bit "
+          f"the unsanitized card run; wall {wall:.3f} s (unsanitized, phase "
+          f"4: {gpu_s:.3f} s)")
+    t0 = time.perf_counter()
+    total, walls = 0, {}
+    for name, card in scen["card_runs"].items():
+        sc = get_scenario(name)
+        sc = dataclasses.replace(sc, overrides={**sc.overrides,
+                                                "sanitize": True})
+        with sanitizer_probe() as seen:
+            run = run_scenario_traced(sc, "cuda")
+        checked, bad = sanitizer_totals(seen)
+        same_runs(card, run, "the sanitized and the unsanitized card runs")
+        if bad or checked != run["dispatches"]:
+            raise RuntimeError(f"{name} sanitized: {checked} epochs checked "
+                               f"of {run['dispatches']}, violations "
+                               f"{bad[:3]}")
+        total += checked
+        walls[name] = {"sanitized_s": run["wall"], "unsanitized_s":
+                       card["wall"]}
+    out["scenarios"] = {"epochs_checked": total, "walls": walls,
+                        "wall_s": time.perf_counter() - t0}
+    print(f"the {len(walls)} scenarios sanitized on the card: {total} epochs "
+          f"checked, no violation, each bit for bit its phase-10 card run; "
+          f"walls sanitized {sum(w['sanitized_s'] for w in walls.values()):.3f}"
+          f" s, unsanitized {sum(w['unsanitized_s'] for w in walls.values()):.3f} s")
+    with sanitizer_probe() as seen:
+        r = run_deployment("nezha-sharded", 16, "cuda", True,
+                           sharded_workload(), sanitize=True)
+    checked, bad = sanitizer_totals(seen)
+    want = shard["runs"][16]["batched"]
+    diff = first_difference(want["summary"], r["summary"], "summary") or \
+        first_difference(shard["g16_state"], sharded_state(r["cluster"]))
+    if diff is not None or bad or checked <= 0 or len(seen) != 16:
+        raise RuntimeError(f"nezha-sharded G 16 batched sanitized: "
+                           f"difference {diff}, {checked} epochs checked by "
+                           f"{len(seen)} groups, violations {bad[:3]}")
+    out["sharded_g16"] = {"epochs_checked": checked,
+                          "timed_s": r["timed_s"],
+                          "unsanitized_timed_s": want["timed_s"]}
+    print(f"nezha-sharded G 16 batched sanitized on the card: {checked} "
+          f"group epochs checked, no violation, bit for bit phase 11's "
+          f"batched run; timed wall {r['timed_s']:.3f} s (unsanitized "
+          f"{want['timed_s']:.3f} s)")
+    return out
+
+
+def quickstart_in_process(root: Path) -> dict:
+    """Phase 15 (e), in this process: `quickstart_torch.main()` once on
+    the card, with the flash_attention counts reset just before and read
+    just after its two demos that C4 opened -- the training demo (smoke
+    tinyllama, head dim 16: 8 steps x 2 layers x the forward and its remat
+    recompute) and the kernel demo (D 32); every launch must take the
+    scalar kernel. Its printed lines go to a buffer."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sys.path.insert(0, str(root / "examples"))
+    import quickstart_torch
+
+    out = {}
+
+    def counted(name, call):
+        def run(*args, **kw):
+            fa.launches = fa.launches_tensor_core = fa.launches_scalar = 0
+            t0 = time.perf_counter()
+            value = call(*args, **kw)
+            counts = {"launches": fa.launches,
+                      "tensor_core": fa.launches_tensor_core,
+                      "scalar": fa.launches_scalar}
+            out[name] = dict(counts, wall_s=time.perf_counter() - t0)
+            return value
+        return run
+
+    demos = {"quickstart training": "demo_training",
+             "quickstart kernel": "demo_kernel"}
+    plain = {attr: getattr(quickstart_torch, attr) for attr in demos.values()}
+    for name, attr in demos.items():
+        setattr(quickstart_torch, attr, counted(name, plain[attr]))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            quickstart_torch.main()
+    finally:
+        for attr, call in plain.items():
+            setattr(quickstart_torch, attr, call)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    if lines[-1] != "quickstart OK":
+        raise RuntimeError(f"quickstart_torch.main() ended with {lines[-1]!r}")
+    for name in demos:
+        counts = {k: out[name][k] for k in ("launches", "tensor_core",
+                                            "scalar")}
+        if counts["launches"] <= 0 or counts["scalar"] != counts["launches"]:
+            raise RuntimeError(f"{name}: flash_attention launches "
+                               f"{json.dumps(counts)}, want all scalar")
+    print(f"  examples/quickstart_torch.py (in process, on the card): "
+          f"{len(lines)} lines, wall {wall:.1f} s; last: {lines[-1]}")
+    for name in demos:
+        print(f"    {name}: flash_attention "
+              f"{json.dumps({k: v for k, v in out[name].items() if k != 'wall_s'})}"
+              f", wall {out[name]['wall_s']:.2f} s")
+    return out
+
+
+def drive_examples(root: Path) -> dict:
+    """Phase 15 (e): the serving and exchange ports as subprocesses at
+    their default device, both at once, while the quickstart runs in this
+    process; each must exit 0. The exchange runs on the host (its
+    event-driven backend has no device; it only checks ``--device``).
+    Their output is small, read when each has ended."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(root / "examples" / name)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in EXAMPLES}
+    ended = {}
+    try:
+        quickstart = quickstart_in_process(root)
+        while len(ended) < len(procs):
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError(f"examples still running after 600 s: "
+                                   f"{sorted(set(procs) - set(ended))}")
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, proc in procs.items():
+        lines = proc.communicate()[0].strip().splitlines()
+        out[name] = {"rc": proc.returncode, "wall_s": ended[name],
+                     "last": lines[-1] if lines else ""}
+        if proc.returncode != 0:
+            raise RuntimeError(f"examples/{name} exited {proc.returncode}:\n"
+                               + "\n".join(lines[-20:]))
+        print(f"  examples/{name} (subprocess, {EXAMPLES[name]}): exit 0, "
+              f"{len(lines)} lines, wall {ended[name]:.1f} s; last: "
+              f"{out[name]['last']}")
+    return {"quickstart": quickstart, "subprocesses": out}
+
+
+def drive_phase15(dev, root: Path, rate: float, duration: float, main_run,
+                  scen: dict, shard: dict) -> dict:
+    t_phase = time.perf_counter()
+    print("flash_attention at head dims 16 and 32 (C4; the reference's "
+          "kernel-test shapes, B 2, kernel vs plain on the card):")
+    heads = check_small_heads(dev)
+    for r in heads:
+        print(f"  {r['shape']}: err {r['max_abs_err']:.3g}, "
+              f"{attention_line(r)}")
+    print("one-shot DOM primitives (R 3, replica 2 dead; card == CPU, bit "
+          "for bit):")
+    one = drive_one_shot()
+    for row in one["rows"]:
+        for name in ONE_SHOT_CALLS:
+            x = row[name]
+            print(f"  n {row['n']}: {name}: card {x['card_s'] * 1e3:.2f} ms, "
+                  f"CPU {x['cpu_s'] * 1e3:.2f} ms, launches dom_admit "
+                  f"{json.dumps(x['launches_by_route']['dom_admit'])} "
+                  f"dom_release "
+                  f"{json.dumps(x['launches_by_route']['dom_release'])}")
+        print(f"  n {row['n']}: {row['committed']} committed, {row['fast']} "
+              f"fast")
+    print("  n 512: the exact oracle (dom_release_schedule) on the card == "
+          "the watermark schedule == the CPU, no launch")
+    figs = drive_figs()
+    print("Figs 1-3 (benchmarks/figs.py, n_msgs 1e5): "
+          + "; ".join(f"fig 1 rate {r['rate']:.0f}/s {r['reordering_pct']:.2f}%"
+                      for r in figs["fig1"]))
+    print("  " + "; ".join(f"fig 2 senders {r['n_senders']} "
+                           f"{r['reordering_pct']:.2f}%" for r in figs["fig2"]))
+    print("  " + "; ".join(
+        f"fig 3 p{r['percentile']} {r['reordering_pct']:.3f}%"
+        + (f" (hold {r['hold_us']:.1f} us, card {r['card_s'] * 1e3:.1f} ms,"
+           f" CPU {r['cpu_s'] * 1e3:.1f} ms)" if r["percentile"] else "")
+        for r in figs["fig3"]) + "; card == CPU, one onesweep dom_admit "
+        "launch a point")
+    sanitized = drive_sanitized(rate, duration, main_run, scen, shard)
+    print("the example ports (the quickstart and serving on the card, the "
+          "exchange on the host):")
+    examples = drive_examples(root)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 15 wall {wall:.1f} s")
+    return {"small_heads": heads, "one_shot": one, "figs": figs,
+            "sanitized": sanitized,
+            "small_head_paths": examples["quickstart"],
+            "examples": examples["subprocesses"], "wall_s": wall}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2763,30 +3272,9 @@ def main() -> int:
                     f"route: {json.dumps(admit_routes)}")
     cpu_cl, cpu_sum, cpu_s = drive_main_path("cpu", rate, duration)
     print(f"same run on the CPU (plain versions): wall {cpu_s:.2f} s")
-    for key, value in gpu_sum.items():
-        if key in ("tier", "backend"):
-            continue
-        same = (value == cpu_sum[key]) or (
-            isinstance(value, float) and np.isnan(value)
-            and np.isnan(cpu_sum[key]))
-        if not same:
-            return fail(f"summary[{key!r}] differs: card {value!r}, "
-                        f"cpu {cpu_sum[key]!r}")
-    lat_g = np.concatenate(gpu_cl._latencies)
-    lat_c = np.concatenate(cpu_cl._latencies)
-    if lat_g.tobytes() != lat_c.tobytes():
-        return fail("commit latencies differ between the card and the CPU")
-    for (tg, *ug), (tc, *uc) in zip(gpu_cl._trace_commits,
-                                    cpu_cl._trace_commits):
-        if tg.tobytes() != tc.tobytes() or any(
-                np.asarray(x).tobytes() != np.asarray(y).tobytes()
-                for x, y in zip(ug, uc)):
-            return fail("commit trace (times, uids, fast flags) differs")
-    log_g = gpu_cl.engine.logs.log_columns()
-    log_c = cpu_cl.engine.logs.log_columns()
-    for col in log_g:
-        if log_g[col].tobytes() != log_c[col].tobytes():
-            return fail(f"replica log column {col!r} differs")
+    diff = main_path_difference(gpu_cl, gpu_sum, cpu_cl, cpu_sum)
+    if diff is not None:
+        return fail(f"the card and the CPU runs differ: {diff}")
     if not (gpu_sum["committed"] > 0
             and np.isfinite(gpu_sum["median_latency"])):
         return fail("the main path committed nothing")
@@ -3004,6 +3492,10 @@ def main() -> int:
     # -- 14. training on the card ----------------------------------------------
     training = drive_training(dev)
 
+    # -- 15. C4, the one-shot primitives, Figs 1-3, the sanitizer, examples ---
+    p15 = drive_phase15(dev, root, rate, duration, (gpu_cl, gpu_sum, gpu_s),
+                        scen, shard)
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -3053,6 +3545,14 @@ def main() -> int:
         entry["crosscheck_launches_by_route"] = {
             f"{row['rate']:.0f}": row["nezha-vectorized"][
                 "launches_by_route"][name] for row in xcheck}
+        entry["one_shot_launches_by_route"] = {
+            f"{prim} n {row['n']}": row[prim]["launches_by_route"][name]
+            for row in p15["one_shot"]["rows"]
+            for prim in ONE_SHOT_CALLS}
+        if name == "dom_admit":
+            entry["fig3_launches_by_route"] = [
+                r["launches_by_route"]["dom_admit"]
+                for r in p15["figs"]["fig3"][1:]]
         record["kernels"].append(entry)
     r = fa_main["bfloat16"]
     record["kernels"].append({
@@ -3084,7 +3584,12 @@ def main() -> int:
             "label", "shape", "route", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "scalar_ms", "tflops")}
             for r in fam_rows],
-        "training": training_record(training, "flash_attention")})
+        "training": training_record(training, "flash_attention"),
+        "small_head_dims": [{k: r.get(k) for k in (
+            "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "tflops")}
+            for r in p15["small_heads"]],
+        "small_head_paths": p15["small_head_paths"]})
     r = ssd_main["bfloat16"]
     ssd_keys = ("max_abs_err", "state_max_abs_err", "ms", "graph_ms",
                 "plain_ms", "bound_ms", "bound_by")

@@ -53,6 +53,7 @@ from repro_torch.core.recovery import (
     pack_uids,
     qualified_replicas,
 )
+from repro_torch.core.sanitizer import Sanitizer
 from repro_torch.kernels.ops import (
     dom_admit_device,
     dom_deadline_order_device,
@@ -191,6 +192,172 @@ _F64 = torch.float64
 _INF = float("inf")
 
 
+def _tree_mean_fetch(reply: torch.Tensor) -> torch.Tensor:
+    """`_fetch_estimate` of each group of [G, N, R] reply delays -> [G]:
+    3x the mean finite delay, summed in the fold-halves `_tree_sum` order.
+    That order is pow2-padding invariant, so a group's padded rows (+inf,
+    masked to 0.0) reduce to its exact host value."""
+    G = reply.shape[0]
+    fin = torch.isfinite(reply)
+    cnt = fin.reshape(G, -1).sum(dim=1)
+    x = torch.where(fin, reply, 0.0).reshape(G, -1)
+    p = _pow2_bucket(x.shape[1])
+    if p != x.shape[1]:
+        x = torch.cat([x, x.new_zeros(G, p - x.shape[1])], dim=1)
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return torch.where(cnt > 0, 3.0 * (x[:, 0] / torch.clamp_min(cnt, 1)),
+                       _INF)
+
+
+def _classify(arrivals, admitted, release, reply_owd, leader, f: int, *,
+              mod_owd, batch_delay: float, order, kcls=None,
+              force_slow=None):
+    """The quorum arithmetic of `classify_commits`, in float64 over a
+    leading axis of G groups: arrivals, admitted, release, reply_owd and
+    mod_owd [G, N, R], leader [G] int64, ``order`` the stable deadline
+    order [G, N], ``kcls`` [G, N] key classes (None: every request
+    conflicts with every other), ``force_slow`` [G, N] (None: no request
+    is barred from the fast path) -> (commit time, fast, committed) [G, N].
+
+    The one copy of it: `classify_commits` runs it at G = 1, the epoch body
+    over its groups. Rows of different groups never mix."""
+    G, N, R = arrivals.shape
+    dev = arrivals.device
+    fq = fast_quorum_size(f)
+    sq = slow_quorum_size(f)
+    lead_at = leader[:, None, None].expand(G, N, 1)
+    lead_col = (torch.arange(R, device=dev) == leader[:, None])[:, None, :]
+
+    def at_leader(x):           # [G, N, R] -> [G, N]: the leader's column
+        return x.gather(2, lead_at)[..., 0]
+
+    # --- hash consistency: prefix-set equality per replica vs leader ------
+    korder = order
+    if kcls is not None:
+        # per key class (S8.2): regroup the deadline order by class
+        # (stable), giving the (class, deadline) order
+        korder = order.gather(1, torch.sort(kcls.gather(1, order), dim=1,
+                                            stable=True).indices)
+    adm_sorted = admitted.gather(1, korder[..., None].expand(G, N, R))
+    disagree = (adm_sorted != at_leader(adm_sorted)[..., None]).to(
+        torch.int64)
+    cum_disagree = torch.cumsum(disagree, dim=1) - disagree   # exclusive
+    if kcls is not None:
+        # segmented: subtract each class's running total at its start
+        ks = kcls.gather(1, korder)
+        is_start = torch.cat(
+            [torch.ones((G, 1), dtype=torch.bool, device=dev),
+             ks[:, 1:] != ks[:, :-1]], dim=1)
+        start_pos = torch.cummax(
+            torch.where(is_start, torch.arange(N, device=dev), 0),
+            dim=1).values
+        cum_disagree = cum_disagree - cum_disagree.gather(
+            1, start_pos[..., None].expand(G, N, R))
+    inv = torch.empty_like(korder).scatter_(
+        1, korder, torch.arange(N, device=dev).expand(G, N))
+    prefix_match = (cum_disagree == 0).gather(
+        1, inv[..., None].expand(G, N, R))
+    # --- fast quorum: leader + (fq - 1) matching followers, by reply time;
+    # the k-th value of the sorted row is the value np.partition picks
+    lead_admitted = at_leader(admitted)
+    fast_reply_t = torch.where(admitted, release + reply_owd, _INF)
+    fast_hash_ok = admitted & prefix_match & lead_admitted[..., None]
+    ok_t = torch.where(fast_hash_ok, fast_reply_t, _INF)
+    ok_lead = at_leader(ok_t)
+    ok_kth = (torch.sort(ok_t, dim=-1).values[..., fq - 1]
+              if fq - 1 < R
+              else torch.full((G, N), _INF, dtype=_F64, device=dev))
+    fast_commit_t = torch.where(torch.isfinite(ok_lead), ok_kth, _INF)
+    fast_commit_t = torch.maximum(fast_commit_t, ok_lead)
+    if force_slow is not None:
+        # deadline-capped requests (SD.2.4): slow path only
+        fast_commit_t = torch.where(force_slow, _INF, fast_commit_t)
+    # --- slow path ----------------------------------------------------------
+    arr_lead = at_leader(arrivals)
+    leader_t = torch.where(lead_admitted, at_leader(release), arr_lead)
+    leader_t = torch.where(torch.isfinite(arr_lead), leader_t, _INF)
+    sync_t = leader_t[..., None] + batch_delay + mod_owd
+    # a follower syncs m only once it has it (or fetched it: + 2 hops)
+    fetch = _tree_mean_fetch(reply_owd)
+    have_t = torch.where(torch.isfinite(arrivals), arrivals,
+                         leader_t[..., None] + fetch[:, None, None])
+    slow_reply_t = torch.maximum(sync_t, have_t) + reply_owd
+    slow_reply_t = torch.where(lead_col, leader_t[..., None] + reply_owd,
+                               slow_reply_t)       # the leader's own reply
+    slow_kth = torch.sort(slow_reply_t, dim=-1).values[..., sq - 1]
+    slow_commit_t = torch.maximum(slow_kth, at_leader(slow_reply_t))
+    # --- verdicts -------------------------------------------------------------
+    commit_t = torch.minimum(fast_commit_t, slow_commit_t)
+    committed = torch.isfinite(commit_t)
+    return commit_t, (fast_commit_t <= slow_commit_t) & committed, committed
+
+
+def classify_commits_device(deadlines, arrivals, admitted, release,
+                            reply_owd, leader: int, f: int, mod_owd=None,
+                            leader_batch_delay: float = 50e-6, key_ids=None,
+                            order=None, force_slow=None):
+    """`classify_commits` on tensors of one device, without the pull:
+    deadlines [N], arrivals, admitted, release, reply_owd and mod_owd
+    (default reply_owd) [N, R], key_ids, order and force_slow [N] ->
+    (commit time, fast, committed) [N]. Without ``order``, the stable
+    deadline order comes from the `dom_release` kernel (its plain version
+    on the CPU)."""
+    dev = arrivals.device
+    N = arrivals.shape[0]
+    if N == 0:
+        return (arrivals.new_zeros(0),
+                torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+    if order is None:
+        order = dom_deadline_order_device(deadlines)
+    outs = _classify(
+        arrivals[None], admitted[None], release[None], reply_owd[None],
+        torch.tensor([int(leader)], device=dev), f,
+        mod_owd=(reply_owd if mod_owd is None else mod_owd)[None],
+        batch_delay=float(leader_batch_delay), order=order[None],
+        kcls=None if key_ids is None else key_ids[None],
+        force_slow=None if force_slow is None else force_slow[None])
+    return tuple(o[0] for o in outs)
+
+
+def classify_commits(deadlines, arrivals, admitted, release, reply_owd,
+                     leader: int, f: int, mod_owd=None,
+                     leader_batch_delay: float = 50e-6, key_ids=None,
+                     order=None, force_slow=None, *,
+                     device="cuda") -> dict:
+    """Classify each request's commit path and commit time at the proxy.
+
+    Port of `repro/core/engine.py::classify_commits`, with the reference's
+    arguments (numpy in, numpy out): deadlines [N], arrivals, admitted,
+    release, reply_owd and mod_owd (default reply_owd) [N, R], key_ids
+    [N] commutativity classes, ``order`` [N] a deadline-sorted index
+    order, force_slow [N]. Fast path: admitted at the leader and at enough
+    followers whose log prefix (the admitted requests of smaller deadline,
+    within the request's key class when ``key_ids`` is given) matches the
+    leader's; slow path: the leader's log-modification, synced and
+    acknowledged by a slow quorum.
+
+    A float64 torch program on ``device`` (the card unless the caller asks
+    for the CPU), `classify_commits_device` between one upload and one
+    pull: without ``order``, the stable deadline order comes from the
+    `dom_release` kernel. Returns commit_time, fast, committed [N]."""
+    dev = resolve_device(device)
+
+    def up(x, dtype=np.float64):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x, dtype), device=dev)
+
+    outs = classify_commits_device(
+        up(deadlines), up(arrivals), up(admitted, bool), up(release),
+        up(reply_owd), leader, f, mod_owd=up(mod_owd),
+        leader_batch_delay=leader_batch_delay,
+        key_ids=up(key_ids, np.int64), order=up(order, np.int64),
+        force_slow=up(force_slow, bool))
+    return dict(zip(("commit_time", "fast", "committed"), _pull(list(outs))))
+
+
 def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
     """The torch epoch body behind the single-epoch step, the K window and
     the sharded backend's batched epoch.
@@ -206,7 +373,8 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
                 sliding percentile + clock margin is selected, bit-identical
                 to `update_bound`/`_partition_percentile`;
       fetch  -- the mean-reply estimate via the fold-halves sum,
-                bit-identical to `_fetch_estimate`.
+                bit-identical to `_fetch_estimate` (in `_classify`, the
+                commit classification it shares with `classify_commits`).
 
     Signature: body(pool [G, W], ptr [G], cnt [G], <epoch operands [G, N]
     and [G, N, R], alive [G, R]>, leader [G], n_valid [G], <config scalars
@@ -219,9 +387,6 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
     `dom_release` kernel: the log's execution order. The modeled sync
     round's [M, M] operands have no group axis (a single engine only).
     """
-    fq = fast_quorum_size(f)
-    sq = slow_quorum_size(f)
-
     def pool_fold(pool, ptr, cnt, obs, n_valid):
         # Ring-buffer fold of each group's observed OWD samples, row-major
         # over its valid rows -- the device twin of update_bound's
@@ -261,23 +426,6 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
         bound = torch.where((bound > 0.0) & (bound < clamp_d), bound, clamp_d)
         return torch.where(cnt > 0, bound, clamp_d)
 
-    def tree_mean_fetch(reply):
-        # `_fetch_estimate` per group: the fold-halves tree sum is
-        # pow2-padding invariant, so each group's padded rows reduce to its
-        # exact host value (pad lanes are +inf -> masked to 0.0).
-        G = reply.shape[0]
-        fin = torch.isfinite(reply)
-        cnt = fin.reshape(G, -1).sum(dim=1)
-        x = torch.where(fin, reply, 0.0).reshape(G, -1)
-        p = _pow2_bucket(x.shape[1])
-        if p != x.shape[1]:
-            x = torch.cat([x, x.new_zeros(G, p - x.shape[1])], dim=1)
-        while x.shape[1] > 1:
-            h = x.shape[1] // 2
-            x = x[:, :h] + x[:, h:]
-        return torch.where(cnt > 0, 3.0 * (x[:, 0] / torch.clamp_min(cnt, 1)),
-                           _INF)
-
     def body(pool, ptr, cnt, t, c2p, owd_pr, drop_pr, reply_owd, alive,
              kcls, leader, n_valid, pq01, margin, clamp_d, batch_delay, cap,
              floor, dies_at=None, stamp_off=None, arr_off=None,
@@ -306,9 +454,8 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
             obs = owd_eff + arr_off - stamp_off[..., None]
         pool, ptr, cnt = pool_fold(pool, ptr, cnt, obs, n_valid)
         bound = pool_percentile(pool, cnt, pq01, margin, clamp_d)
-        # --- fetch: mean-reply estimate -------------------------------------
+        # dead replicas reply never (the fetch estimate excludes them too)
         reply = torch.where(alive[:, None, :], reply_owd, _INF)
-        fetch = tree_mean_fetch(reply)
         # --- stamp: proxy stamping + deadline bounding ---------------------
         # stamp_off: proxy clock-read error folded into the deadline value;
         # arr_off: replica clock-read error shifting each receiver's local
@@ -346,62 +493,15 @@ def _build_epoch_body(f: int, use_kcls: bool, use_cap: bool = False):
             admitted = admitted | (lead_col & capped[..., None])
             release = torch.where(lead_col & capped[..., None], arrivals,
                                   release)
-        # --- commit: prefix hash-consistency vs the leader ------------------
+        # --- commit: the shared quorum arithmetic over the kernel's order ----
         order = dom_deadline_order_device(deadlines)
-        korder = order
-        if use_kcls:
-            # regroup each group's rows by key class (stable): (class,
-            # deadline) order; this sort is outside the DOM kernels
-            korder = order.gather(1, torch.sort(kcls.gather(1, order), dim=1,
-                                                stable=True).indices)
-        adm_sorted = admitted.gather(1, korder[..., None].expand(G, N, R))
-        lead_adm_sorted = at_leader(adm_sorted)
-        disagree = (adm_sorted != lead_adm_sorted[..., None]).to(torch.int64)
-        cum_disagree = torch.cumsum(disagree, dim=1) - disagree
-        if use_kcls:
-            ks = kcls.gather(1, korder)
-            is_start = torch.cat(
-                [torch.ones((G, 1), dtype=torch.bool, device=dev),
-                 ks[:, 1:] != ks[:, :-1]], dim=1)
-            start_pos = torch.cummax(
-                torch.where(is_start, torch.arange(N, device=dev), 0),
-                dim=1).values
-            cum_disagree = cum_disagree - cum_disagree.gather(
-                1, start_pos[..., None].expand(G, N, R))
-        prefix_match = cum_disagree == 0
-        inv = torch.empty_like(korder).scatter_(
-            1, korder, torch.arange(N, device=dev).expand(G, N))
-        prefix_match = prefix_match.gather(1, inv[..., None].expand(G, N, R))
-        # --- fast quorum ----------------------------------------------------
-        lead_admitted = at_leader(admitted)
-        fast_reply_t = torch.where(admitted, release + reply, _INF)
-        fast_hash_ok = admitted & prefix_match & lead_admitted[..., None]
-        ok_t = torch.where(fast_hash_ok, fast_reply_t, _INF)
-        ok_lead = at_leader(ok_t)
-        ok_kth = (torch.sort(ok_t, dim=-1).values[..., fq - 1] if fq - 1 < R
-                  else torch.full((G, N), _INF, dtype=_F64, device=dev))
-        fast_commit_t = torch.where(torch.isfinite(ok_lead), ok_kth, _INF)
-        fast_commit_t = torch.maximum(fast_commit_t, ok_lead)
-        if use_cap:
-            fast_commit_t = torch.where(capped, _INF, fast_commit_t)
-        # --- slow path ------------------------------------------------------
-        arr_lead = at_leader(arrivals)
-        leader_t = torch.where(lead_admitted, at_leader(release), arr_lead)
-        leader_t = torch.where(torch.isfinite(arr_lead), leader_t, _INF)
-        sync_t = leader_t[..., None] + batch_delay + reply
-        have_t = torch.where(torch.isfinite(arrivals), arrivals,
-                             leader_t[..., None] + fetch[:, None, None])
-        slow_reply_t = torch.maximum(sync_t, have_t) + reply
-        slow_reply_t = torch.where(lead_col, leader_t[..., None] + reply,
-                                   slow_reply_t)
-        slow_kth = torch.sort(slow_reply_t, dim=-1).values[..., sq - 1]
-        slow_commit_t = torch.maximum(slow_kth, leader_t + at_leader(reply))
-        # --- verdicts -------------------------------------------------------
-        commit_t = torch.minimum(fast_commit_t, slow_commit_t)
-        fast = fast_commit_t <= slow_commit_t
-        committed = torch.isfinite(commit_t)
+        commit_t, fast, committed = _classify(
+            arrivals, admitted, release, reply, leader, f, mod_owd=reply,
+            batch_delay=batch_delay, order=order,
+            kcls=kcls if use_kcls else None,
+            force_slow=capped if use_cap else None)
         outs = [stamp, deadlines, arrivals, admitted, release, commit_t,
-                fast & committed, committed, order]
+                fast, committed, order]
         if sync_theta is not None:
             # a modeled sync round's per-node reductions run in the body
             # over the [M, M] probe operands this epoch carries
@@ -793,6 +893,11 @@ class LogStage(Stage):
                           else None))
 
 
+# The stages `DomEngine` runs, in order (the reference's fused pipeline;
+# its staged numpy stamp/dom/commit stages are a seam of `repro`).
+FUSED_STAGES = (SampleStage, FusedEpochStage, DeliverStage, LogStage)
+
+
 def _partition_percentile(a: np.ndarray, q: float) -> float:
     """np.percentile(a, q) (linear interpolation) via O(n) np.partition.
 
@@ -1079,21 +1184,17 @@ class DomEngine:
     """
 
     def __init__(self, cfg, net, n_replicas: int):
-        if getattr(cfg, "sanitize", False) \
-                or os.environ.get("REPRO_SANITIZE", "") not in ("", "0"):
-            # the reference wraps its tier in the sanitizer on either
-            # switch; until the sanitizer is ported, neither may pass
-            # silently
-            raise NotImplementedError(
-                "the runtime invariant sanitizer is not ported yet "
-                "(cfg.sanitize or REPRO_SANITIZE)")
         self.cfg = cfg
         self.net = net
         self.n = n_replicas
         self.device = resolve_device(getattr(cfg, "device", "cuda"))
+        # the runtime invariant sanitizer, on either switch (None: off)
+        self.sanitizer: Optional[Sanitizer] = None
+        if getattr(cfg, "sanitize", False) \
+                or os.environ.get("REPRO_SANITIZE", "") not in ("", "0"):
+            self.sanitizer = Sanitizer(self.tier_name)
         self.logs = ReplicaLogState(n_replicas, cfg.f)
-        self.stages = [SampleStage(), FusedEpochStage(), DeliverStage(),
-                       LogStage()]
+        self.stages = [stage() for stage in FUSED_STAGES]
         self._bodies: dict = {}
         self.owd_pool = np.zeros(0)     # sliding OWD sample pool (host mirror)
         self._bound_cache: Optional[float] = None
@@ -1366,6 +1467,8 @@ class DomEngine:
         if self.clocksync is not None and self.clocksync.pending is not None:
             # a due round that rode no dispatch lands via the numpy twin
             self.clocksync.apply_pending()
+        if self.sanitizer is not None:
+            self.sanitizer.check_epoch(s, self)
         return s
 
     # -- the device program ----------------------------------------------------
@@ -1507,11 +1610,14 @@ class DomEngine:
             s.reply_owd = rep
             deliver.run(s, self)
             log.run(s, self)
+            if self.sanitizer is not None:
+                self.sanitizer.check_epoch(s, self)
         return states
 
 
 __all__ = [
-    "PENDING_DTYPE", "PendingBuffer", "SCAN_K_BUCKETS",
+    "PENDING_DTYPE", "PendingBuffer", "SCAN_K_BUCKETS", "classify_commits",
+    "classify_commits_device",
     "EpochState", "Stage", "SampleStage", "FusedEpochStage", "DeliverStage",
-    "LogStage", "ReplicaLogState", "DomEngine",
+    "LogStage", "FUSED_STAGES", "ReplicaLogState", "DomEngine",
 ]

@@ -480,6 +480,8 @@ class ShardedNezhaCluster(Cluster):
             log = next(st for st in eng.stages if isinstance(st, LogStage))
             deliver.run(s, eng)
             log.run(s, eng)
+            if eng.sanitizer is not None:
+                eng.sanitizer.check_epoch(s, eng)
         return states
 
 

@@ -78,8 +78,8 @@ class VectorizedConfig(CommonConfig):
     deadline_cap: float = 0.0           # SD.2.4: leader pulls deadlines more
     #   than this past its local arrival back (0 = disabled); bounds holding
     #   delay under bad clock sync at the cost of the fast path.
-    sanitize: bool = False              # per-epoch runtime invariant checks;
-    #   not ported yet (the engine raises when asked for them)
+    sanitize: bool = False              # per-epoch runtime invariant checks
+    #   (`repro_torch.core.sanitizer`; also on with REPRO_SANITIZE set)
 
 
 def config_from_reference(d: dict, **overrides) -> VectorizedConfig:

@@ -17,7 +17,7 @@
 // prefill shape 75.5 MB, 0.023 ms at 3.35 TB/s, against 137.5 GFLOP,
 // 0.139 ms).
 //
-// Two routes, chosen by the wrapper from the inputs' type:
+// Two routes, chosen by the wrapper from the inputs' type and head dim:
 // - bf16, D 64, 96 or 128: the tensor-core kernel of flash_attention_sm90.cuh.
 //   Only `wgmma` reaches the bf16 rate, so both products run on it from
 //   shared memory that TMA fills asynchronously through a ring of K/V
@@ -30,11 +30,14 @@
 //   or Sk, and only the KV tiles of the causal/window band are walked. P
 //   enters the second product rounded to bf16, as the tensor cores take it
 //   (within the 2e-2 tolerance of the reference's bf16 tests).
-// - float32 (and bf16 on request, for comparison): the scalar kernel below.
-//   It stages tiles as float32 in shared memory and does both products
-//   with float32 FMAs (67 TFLOP/s peak). float32 keeps it: the tensor
-//   cores take float32 only as TF32 (10-bit mantissa), which breaks the
-//   2e-5 tolerance of the float32 route.
+// - float32 (and bf16 on request, for comparison), and D 16 or 32 in either
+//   type: the scalar kernel below. It stages tiles as float32 in shared
+//   memory and does both products with float32 FMAs (67 TFLOP/s peak).
+//   float32 keeps it: the tensor cores take float32 only as TF32 (10-bit
+//   mantissa), which breaks the 2e-5 tolerance of the float32 route. D 16
+//   and 32 (the smoke configurations, the reference's kernel tests) keep
+//   it too: a row is narrower than the tensor-core kernel's 64-column
+//   atom.
 //
 // Scalar kernel: one block of 256 threads per (64-row query tile, batch x
 // query head); blockIdx.x is the (batch, head) and blockIdx.y the query
@@ -43,8 +46,9 @@
 // only, staging each 64-key K tile (transposed) and V tile as float32.
 // Thread (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 of the tile, key
 // columns 4tx..4tx+3 of S, and output columns 4tx.. (+64) of the
-// accumulator (at D 96 the second group of 64 columns is half full: its
-// threads past column 96 idle); row max and sum reduce over the 16 threads
+// accumulator (at D 96 the second group of 64 columns is half full, at
+// D 16 and 32 the only group a quarter or half: threads past column D
+// idle in the P V product); row max and sum reduce over the 16 threads
 // of a half-warp with shuffles. Ragged S and Sk are masked in the kernel
 // (no padding).
 #include <cstdint>
@@ -67,8 +71,9 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* dst) {
 }
 
 // Loads 8 consecutive elements (16 bytes for bf16, two float4 for float32)
-// of a row into float32. `p` is 16-byte aligned: rows are D (64, 96 or
-// 128) elements long and tensors start on allocator boundaries.
+// of a row into float32. `p` is 16-byte aligned: rows are D (16, 32, 64,
+// 96 or 128, a multiple of 8) elements long and tensors start on allocator
+// boundaries.
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -314,6 +319,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       static_cast<long long>(B) * Hq > 0x7FFFFFFFll ||
       (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && D == 16)
+    return launch<float, 16>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
+                             q_offset, scale, st);
+  if (dtype == 0 && D == 32)
+    return launch<float, 32>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
+                             q_offset, scale, st);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
                              q_offset, scale, st);
@@ -323,6 +334,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, out, B, S, Sk, Hq, Hk, causal, window,
                               q_offset, scale, st);
+  if (dtype == 1 && D == 16)
+    return launch<__nv_bfloat16, 16>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
+                                     window, q_offset, scale, st);
+  if (dtype == 1 && D == 32)
+    return launch<__nv_bfloat16, 32>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
+                                     window, q_offset, scale, st);
   if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Sk, Hq, Hk, causal,
                                      window, q_offset, scale, st);

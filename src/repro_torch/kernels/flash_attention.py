@@ -13,7 +13,8 @@ Sk do not exist. Masks: causal (key <= query) and a sliding window
 On the H100 the work is bound by operations: 4 D FLOPs per visible (query,
 key) pair at 989 TFLOP/s bf16 dense, which only the tensor cores reach.
 So a CUDA call takes one of two kernels (``kernel_route``):
-- bf16 (the models' compute type) runs on the tensor cores
+- bf16 (the models' compute type) at D 64, 96 or 128 runs on the tensor
+  cores
   (``csrc/flash_attention_sm90.cuh``): TMA copies K and V tiles through a
   ring in shared memory, two or three warpgroups of 64 query rows take
   turns to run both products with ``wgmma``, and the online softmax stays
@@ -24,7 +25,10 @@ So a CUDA call takes one of two kernels (``kernel_route``):
 - float32 keeps the scalar kernel (``csrc/flash_attention.cu``), float32
   FMAs at 67 TFLOP/s peak: the tensor cores take float32 only as TF32,
   which breaks the float32 route's 2e-5 tolerance. ``scalar=True`` also
-  runs it on bf16 inputs, to compare the two kernels.
+  runs it on bf16 inputs, to compare the two kernels. The small head dims
+  (D 16 and 32: the smoke configurations, the reference's kernel tests)
+  take it in either type: their rows are narrower than one 64-column
+  tensor-core atom.
 
 The plain version is the dense O(S Sk) computation of the same function
 (float32 scores [B, Hk, G, S, Sk]). The wrapper dispatches on the
@@ -45,7 +49,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.grad import needs_grad, plain_grads
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)      # the scalar kernel's
+TC_HEAD_DIMS = (64, 96, 128)           # the tensor-core kernel's (bf16)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches through `flash_attention` (counted per call): of either kernel,
@@ -107,11 +112,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v are on different devices")
 
 
-def kernel_route(dtype: torch.dtype, scalar: bool = False) -> str:
-    """The kernel a CUDA call on ``dtype`` inputs takes: bf16 the tensor
-    cores, float32 (or anything with ``scalar``) the scalar kernel."""
-    return "tensor_core" if dtype == torch.bfloat16 and not scalar \
-        else "scalar"
+def kernel_route(dtype: torch.dtype, D: int, scalar: bool = False) -> str:
+    """The kernel a CUDA call on ``dtype`` inputs of head dim ``D`` takes:
+    bf16 at a tensor-core head dim the tensor cores; float32, D 16 or 32,
+    or anything with ``scalar`` the scalar kernel."""
+    return "tensor_core" if (dtype == torch.bfloat16 and D in TC_HEAD_DIMS
+                             and not scalar) else "scalar"
 
 
 def tensor_map_args(t: torch.Tensor) -> tuple[int, ...]:
@@ -139,8 +145,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
                         f"not {q.dtype}")
-    which = kernel_route(q.dtype, scalar)
     D = q.shape[3]
+    which = kernel_route(q.dtype, D, scalar)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, "
                          f"not {D}")

@@ -159,7 +159,11 @@ def test_tensor_map_args_address_every_element(B, S, H, D):
 
 
 def test_kernel_route_by_dtype():
-    assert kernel_route(torch.bfloat16) == "tensor_core"
-    assert kernel_route(torch.float32) == "scalar"
-    assert kernel_route(torch.bfloat16, scalar=True) == "scalar"
-    assert kernel_route(torch.float32, scalar=True) == "scalar"
+    for D in (64, 96, 128):
+        assert kernel_route(torch.bfloat16, D) == "tensor_core"
+        assert kernel_route(torch.float32, D) == "scalar"
+        assert kernel_route(torch.bfloat16, D, scalar=True) == "scalar"
+        assert kernel_route(torch.float32, D, scalar=True) == "scalar"
+    for D in (16, 32):          # narrower than a tensor-core atom
+        assert kernel_route(torch.bfloat16, D) == "scalar"
+        assert kernel_route(torch.float32, D) == "scalar"

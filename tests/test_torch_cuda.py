@@ -309,6 +309,39 @@ def _run(device, crash=None, **cfg_kw):
     return cl
 
 
+@pytest.mark.parametrize("n", [1, 300, 100_000])
+def test_one_shot_commit_classification_on_the_card_equals_the_cpu(dev, n):
+    """`nezha_commit_times` (one launch of each DOM kernel) and
+    `classify_commits` without ``order`` (one `dom_release` launch) and
+    with a capped mask: the card's numpy results are the CPU's, bit for
+    bit."""
+    from repro_torch.core.engine import classify_commits
+    from repro_torch.core.vectorized import nezha_commit_times
+
+    rng = np.random.default_rng(n)
+    d, a = _batch(rng, n)
+    a[:, 2] = np.inf                                  # a dead replica
+    reply = rng.lognormal(np.log(50e-6), 0.5, (n, 3))
+    keys = rng.integers(0, 64, n)
+    slow = rng.random(n) < 0.2
+    for call, want in (
+            (lambda device: nezha_commit_times(d, a, reply, 0, 1,
+                                               key_ids=keys, device=device),
+             (1, 1)),
+            (lambda device: classify_commits(
+                d, a, np.isfinite(a), np.maximum(d[:, None], a), reply, 0,
+                1, key_ids=keys, force_slow=slow, device=device), (0, 1))):
+        before = (admit_mod.launches, release_mod.launches)
+        card = call("cuda")
+        assert (admit_mod.launches - before[0],
+                release_mod.launches - before[1]) == want
+        cpu = call("cpu")
+        assert list(card) == list(cpu)
+        for key in cpu:
+            assert card[key].dtype == cpu[key].dtype
+            assert card[key].tobytes() == cpu[key].tobytes(), key
+
+
 @pytest.mark.parametrize("crash,cfg_kw", [
     (None, {"epochs_per_dispatch": 16, "client_timeout": 1.0}),
     (0.053, {"epochs_per_dispatch": 16,
@@ -396,6 +429,17 @@ def _qkv(dev, B, S, Sk, Hq, Hk, D, dtype, seed=0):
     (2, 4096, 4096, 48, 8, 128, True, None, 0),
     (2, 4096, 4096, 56, 8, 128, True, None, 0),
     (1, 200, 200, 14, 2, 128, True, None, 0),
+    # D 16 and 32 (the scalar kernel in either type): the reference's
+    # kernel-test shapes (tests/test_kernels.py:30-34), then ragged S, an
+    # offset and the smoke configs' heads
+    (2, 128, 128, 4, 2, 16, True, None, 0),
+    (2, 96, 96, 4, 1, 32, True, None, 0),
+    (2, 128, 128, 2, 2, 16, False, None, 0),
+    (2, 256, 256, 4, 2, 16, True, 64, 0),
+    (2, 64, 64, 8, 8, 64, True, None, 0),
+    (1, 77, 333, 4, 2, 32, False, None, 0),
+    (1, 40, 200, 4, 2, 16, True, 16, 160),
+    (1, 128, 128, 4, 2, 32, True, None, 0),
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, S, Sk, Hq, Hk, D,
                                              causal, window, q_offset):
@@ -415,10 +459,10 @@ def test_flash_attention_wrapper_launches_on_cuda_tensors(dev):
     before = fa_mod.launches
     fa_mod.flash_attention(q, k, v)
     assert fa_mod.launches == before + 1
-    with pytest.raises(ValueError):     # the kernel takes D in {64, 96, 128}
-        fa_mod.flash_attention(q[..., :32].contiguous(),
-                               k[..., :32].contiguous(),
-                               v[..., :32].contiguous())
+    with pytest.raises(ValueError):     # the kernel takes D in HEAD_DIMS
+        fa_mod.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous())
     with pytest.raises(ValueError):           # no silent copy of a strided q
         fa_mod.flash_attention(q.transpose(1, 2), k, v)
     assert fa_mod.launches == before + 1
@@ -439,8 +483,9 @@ def test_flash_attention_takes_more_than_65535_heads(dev, dtype):
 def test_flash_attention_routes_by_dtype(dev):
     """bf16 launches the tensor-core kernel, float32 the scalar one (each
     route counts its own launches beside the total); ``scalar=True`` runs
-    the scalar kernel on bf16 and agrees with the tensor cores; an
-    unsupported head dim raises before any launch."""
+    the scalar kernel on bf16 and agrees with the tensor cores; bf16 at
+    D 32 takes the scalar kernel; an unsupported head dim raises before
+    any launch."""
     q, k, v = _qkv(dev, 1, 200, 200, 8, 2, 64, torch.bfloat16, seed=7)
     counts = lambda: (fa_mod.launches, fa_mod.launches_tensor_core,  # noqa: E731
                       fa_mod.launches_scalar)
@@ -454,11 +499,15 @@ def test_flash_attention_routes_by_dtype(dev):
     torch.cuda.synchronize()
     assert float((got_tc.float() - got_scalar.float()).abs().max().cpu()) \
         <= FA_TOL[torch.bfloat16]
+    fa_mod.flash_attention(q[..., :32].contiguous(),
+                           k[..., :32].contiguous(),
+                           v[..., :32].contiguous())
+    assert counts() == (total + 4, tc + 1, scalar + 3)
     with pytest.raises(ValueError):
-        fa_mod.flash_attention(q[..., :32].contiguous(),
-                               k[..., :32].contiguous(),
-                               v[..., :32].contiguous())
-    assert counts() == (total + 3, tc + 1, scalar + 2)
+        fa_mod.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous())
+    assert counts() == (total + 4, tc + 1, scalar + 3)
 
 
 @pytest.mark.parametrize("D", [64, 96])

@@ -261,28 +261,3 @@ def test_estimate_offsets_torch_equals_numpy(seed):
                             np.float64(200e-9))
     for w, h in zip(want, host):
         assert np.asarray(h).tobytes() == np.asarray(w).tobytes()
-
-
-def test_sanitizer_is_refused_until_ported():
-    rc = RefConfig(f=1, sanitize=True)
-    cfg = config_from_reference(dataclasses.asdict(rc), device="cpu")
-    with pytest.raises(NotImplementedError):
-        DomEngine(cfg, CloudNetwork(5, cfg.net, seed=0), 3)
-
-
-@pytest.mark.parametrize("value,refused", [("1", True), ("yes", True),
-                                           ("0", False), ("", False)])
-def test_sanitize_variable_is_refused_until_ported(monkeypatch, value,
-                                                   refused):
-    """`REPRO_SANITIZE` switches the reference's sanitizer on as
-    ``cfg.sanitize`` does (any value but "" and "0"); the port refuses it
-    the same way until the sanitizer is ported."""
-    monkeypatch.setenv("REPRO_SANITIZE", value)
-    cfg = config_from_reference(dataclasses.asdict(RefConfig(f=1)),
-                                device="cpu")
-    net = CloudNetwork(5, cfg.net, seed=0)
-    if refused:
-        with pytest.raises(NotImplementedError, match="REPRO_SANITIZE"):
-            DomEngine(cfg, net, 3)
-    else:
-        assert DomEngine(cfg, net, 3).device.type == "cpu"

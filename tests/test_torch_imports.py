@@ -1,7 +1,7 @@
 """Import hygiene of the port: no module under src/repro_torch/, not
-chip_smoke.py and not the example it drives (examples/train_100m_torch.py)
-imports JAX or any module of the reference package `repro` (the port keeps
-its own copy of whatever it needs from there)."""
+chip_smoke.py and not the port's examples (examples/*_torch.py) imports
+JAX or any module of the reference package `repro` (the port keeps its own
+copy of whatever it needs from there)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "train_100m_torch.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -38,7 +38,10 @@ def test_the_port_has_modules_to_check():
     assert "src/repro_torch/models/model.py" in names
     assert "src/repro_torch/kernels/flash_attention.py" in names
     assert "chip_smoke.py" in names
-    assert "examples/train_100m_torch.py" in names
+    assert {"examples/train_100m_torch.py", "examples/quickstart_torch.py",
+            "examples/replicated_kv_store_torch.py",
+            "examples/fair_exchange_torch.py",
+            "examples/replicated_serving_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

@@ -548,6 +548,38 @@ def test_flash_attention_wrapper_validates_inputs():
         fa_mod.flash_attention(q[0], k[0], v[0])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,Hq,Hk,D,causal,window", [
+    (128, 4, 2, 16, True, None),
+    (96, 4, 1, 32, True, None),
+    (128, 2, 2, 16, False, None),
+    (256, 4, 2, 16, True, 64),
+    (64, 8, 8, 64, True, None),
+])
+def test_flash_attention_plain_matches_the_reference_oracle(S, Hq, Hk, D,
+                                                           causal, window,
+                                                           dtype):
+    """The kernels' plain version at the reference's kernel-test shapes
+    (tests/test_kernels.py:30-34; D 16 and 32 run the scalar kernel on the
+    card) against `repro.kernels.ref.flash_attention_ref`, with that
+    test's tolerances: 2e-5 float32, 2e-2 bf16."""
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(S + D)
+    arrs = [rng.normal(0, 0.5, shape).astype(np.float32)
+            for shape in ((2, S, Hq, D), (2, S, Hk, D), (2, S, Hk, D))]
+    got = fa_mod.flash_attention_plain(
+        *(torch.as_tensor(a).to(getattr(torch, dtype)) for a in arrs),
+        causal=causal, window=window)
+    want = jref.flash_attention_ref(
+        *(jnp.asarray(a, getattr(jnp, dtype)) for a in arrs),
+        causal=causal, window=window)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
 def test_lm_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

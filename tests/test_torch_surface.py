@@ -8,7 +8,7 @@ Exempt: the compute tiers (``TIERS``, ``make_tier``, ``*Tier``: the port's
 (JAX forms whose torch counterparts carry other names), the names the
 port replaced by design (``REPLACED``, each with its reason), and the
 names of the modules ROADMAP.md still queues, each under its label there
-(B6: the rest of the data plane; B9: `parallel/` and the launch tools)."""
+(B9: `parallel/` and the launch tools)."""
 import ast
 import importlib
 import importlib.util
@@ -28,18 +28,13 @@ REPLACED = {
     # exported but called nowhere in the reference (its transformer only
     # imports it); the port's `init_params` sets every norm leaf by name
     "repro.models.layers": ("unused by the reference", {"norm_params"}),
+    # the reference's staged numpy pipeline, a seam of `repro`
+    # (`DomEngine(stages=...)`): the port's engine runs FUSED_STAGES, whose
+    # body on the CPU is held bit for bit against that pipeline
+    "repro.core.engine": ("the fused stages", {
+        "StampStage", "DomStage", "CommitStage", "DEFAULT_STAGES"}),
 }
 QUEUED = {
-    # ROADMAP B6: the sanitizer, `classify_commits` and the vectorized
-    # one-shot primitives; the staged stages are a seam of `repro`
-    "repro.core.engine": ("B6", {
-        "classify_commits", "StampStage", "DomStage", "CommitStage",
-        "DEFAULT_STAGES", "FUSED_STAGES"}),
-    "repro.core.vectorized": ("B6", {
-        "VecDomParams", "dom_release_schedule",
-        "dom_release_schedule_chunked", "dom_release_schedule_watermark",
-        "dom_admit_watermark_np", "nezha_commit_times",
-        "multicast_reordering", "dom_reordering", "reordering_score_np"}),
     # ROADMAP B9: the sharding rules and the other collectives
     "repro.parallel": ("B9", {
         "batch_spec", "cache_shardings", "param_shardings", "DATA_AXES",
@@ -111,7 +106,7 @@ def test_queued_names_are_the_references_and_still_missing(name):
     """Each queued name is in the reference's ``__all__`` and not yet in
     the port: when a slice ports one, it leaves this list."""
     label, queued = QUEUED[name]
-    assert label in ("B6", "B9")
+    assert label == "B9"
     names = dict(PAIRS)[name]
     assert queued <= set(names)
     port_name = "repro_torch" + name[len("repro"):]
