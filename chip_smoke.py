@@ -221,14 +221,33 @@ Phases (any failure exits non-zero):
      dim 16, 32 launches, and the kernel demo at D 32, one: every launch
      on the scalar kernel), while replicated_serving_torch.py (on the card)
      and fair_exchange_torch.py (host only) run as subprocesses, each
-     exiting 0.
+     exiting 0;
+ 16. the sharding rules, collectives, meshes and the dry run: (a)
+     `make_host_mesh()` as a one-rank NCCL `DeviceMesh`; tinyllama-1.1b's
+     full-width parameters from seed 0 through `param_shardings` into
+     DTensors and back, bit for bit; `elastic_step` from a recorded
+     2-device world to the one card (the scaling event committed to a
+     `ReplicatedMetadataLog`) and `reshard_state`, bit for bit; (b) each
+     collective (`deadline_masked_mean`, `compressed_allreduce`) on NCCL
+     at world size 1 equal to the same call on the CPU (gloo), bit for bit;
+     (c) `repro_torch.launch.hillclimb` at batch 1 and 4 layers (its three
+     cells, every iteration's terms and measured step time; the ssd_scan kernel called
+     at chunk 128, 64 and 32, counted by a probe around `ssd_scan_cuda`;
+     `dp_only` refuted: one card runs no collective; the qwen2-7b decode
+     on a float8 KV cache); (d) `run_cell` for tinyllama-1.1b x
+     {train_4k, prefill_32k, decode_32k, long_500k} and mamba2-130m x
+     long_500k at one chip's batch of the 16x16 mesh, the launch counts
+     reset just before each step and read just after (long_500k on
+     tinyllama skipped with the reference's reason), and the roofline
+     table of the results.
 The last lines are the kernels' JSON record (the DOM records also carry
 phase 10's launches by route, phase 11's batched rows and launches and
 phase 13's cross-check launches, flash_attention and ssd_scan phase 12's
 launches and attention rows, flash_attention phase 13's launches,
 flash_attention and ssd_scan phase 14's launches and C1 gates, the DOM
 records phase 15's one-shot and Fig 3 launches, flash_attention phase 15's
-head-dim 16/32 rows),
+head-dim 16/32 rows, flash_attention and ssd_scan phase 16's launches by
+cell and hillclimb step, ssd_scan's calls by chunk),
 the nvidia-smi line and {"ok": true, "device": {...}}. The script imports
 nothing of JAX or `repro`.
 
@@ -3159,6 +3178,221 @@ def drive_phase15(dev, root: Path, rate: float, duration: float, main_run,
             "examples": examples["subprocesses"], "wall_s": wall}
 
 
+# Phase 16: the cells `run_cell` drives at one chip's batch of the 16x16
+# mesh, and the flash_attention launches each must make in one step
+# (tinyllama-1.1b: 22 layers; train: the forward and its recompute in each
+# microbatch)
+P16_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "prefill_32k"),
+             ("tinyllama-1.1b", "decode_32k"), ("tinyllama-1.1b", "long_500k"),
+             ("mamba2-130m", "long_500k"))
+P16_CALLS = 1            # timed calls after the warm one, per run
+# the hillclimb's runs cut to 4 layers (hymba-1.5b's chunk-32 train step
+# takes 12-18 s at its 32): the phase's time, not the cells', is cut
+P16_HILLCLIMB_LAYERS = 4
+
+
+@contextlib.contextmanager
+def ssd_chunk_probe():
+    """Counts `ssd_scan_cuda` calls on the card by their chunk while
+    active (not the abstract pass's recorded ones, on fake CPU tensors)."""
+    from collections import Counter
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    seen: Counter = Counter()
+    real = ssd.ssd_scan_cuda
+
+    def probe(x, *args, chunk: int = 128, **kw):
+        if x.device.type == "cuda":
+            seen[chunk] += 1
+        return real(x, *args, chunk=chunk, **kw)
+
+    ssd.ssd_scan_cuda = probe
+    try:
+        yield seen
+    finally:
+        ssd.ssd_scan_cuda = real
+
+
+def _same_bits(placed, params, path=()) -> int:
+    """Every DTensor leaf of ``placed`` holds ``params``' leaf bit for bit;
+    returns the leaves compared."""
+    import torch
+
+    if isinstance(params, dict):
+        return sum(_same_bits(placed[k], params[k], path + (k,))
+                   for k in params)
+    local = placed.to_local()
+    if not (local.dtype == params.dtype and local.device == params.device
+            and torch.equal(local.view(torch.uint8),
+                            params.view(torch.uint8))):
+        raise RuntimeError(f"leaf {'/'.join(path)} changed in placement")
+    return 1
+
+
+def drive_mesh_and_collectives(dev) -> dict:
+    """Phase 16 (a) and (b)."""
+    import torch
+
+    from repro_torch.ckpt.replicated_log import ReplicatedMetadataLog
+    from repro_torch.configs import get_config
+    from repro_torch.launch.elastic import WorldState, elastic_step, reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import distribute, param_shardings
+
+    mesh = make_host_mesh()
+    out = {"mesh": {"shape": list(mesh.mesh.shape),
+                    "dims": list(mesh.mesh_dim_names),
+                    "device_type": mesh.device_type}}
+    params = init_params(get_config("tinyllama-1.1b"), 0, device=dev)
+    placed = distribute(params, param_shardings(params, mesh))
+    out["leaves"] = _same_bits(placed, params)
+    out["wq_placements"] = str(placed["layers"]["attn"]["wq"].placements)
+    log = ReplicatedMetadataLog()
+    world, new_mesh = elastic_step(WorldState(2, (2, 1)), [0], log=log)
+    out["world"] = [world.n_devices, list(world.mesh_shape), world.generation]
+    out["logged"] = log.current_scaling()
+    if out["world"] != [1, [1, 1], 1] or out["logged"] != {
+            "step": 1, "n_healthy": 1, "mesh": [1, 1]}:
+        raise RuntimeError(f"elastic_step: {out}")
+    if _same_bits(reshard_state(placed, new_mesh), params) != out["leaves"]:
+        raise RuntimeError("reshard_state lost leaves")
+    del placed, params
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(0)
+    grads = {"wq": torch.randn(2048, 2048, generator=gen) * 1e-3,
+             "b": (torch.randn(4096, generator=gen),)}
+    on_card = {"wq": grads["wq"].to(dev), "b": (grads["b"][0].to(dev),)}
+    checked = 0
+    for mask in (1, 0):
+        want = coll.deadline_masked_mean(grads, torch.tensor(mask))
+        got = coll.deadline_masked_mean(on_card, torch.tensor(mask, device=dev))
+        for a, b in ((got["wq"], want["wq"]), (got["b"][0], want["b"][0])):
+            if not torch.equal(a.cpu(), b):
+                raise RuntimeError(f"deadline_masked_mean (mask {mask}): "
+                                   f"NCCL != gloo")
+            checked += 1
+    x = grads["wq"].reshape(-1)
+    if not torch.equal(coll.compressed_allreduce(x.to(dev)).cpu(),
+                       coll.compressed_allreduce(x)):
+        raise RuntimeError("compressed_allreduce: NCCL != gloo")
+    out["collectives_checked"] = checked + 1
+    return out
+
+
+def drive_hillclimb() -> dict:
+    """Phase 16 (c): the hillclimb at batch 1 and P16_HILLCLIMB_LAYERS
+    layers, the ssd_scan chunks probed."""
+    from repro_torch.launch import hillclimb
+
+    with ssd_chunk_probe() as chunks:
+        records = hillclimb.run(batch=1, layers=P16_HILLCLIMB_LAYERS,
+                                calls=P16_CALLS)
+    failed = [r for r in records if r.get("status", "ok") != "ok"]
+    if failed:
+        raise RuntimeError(f"hillclimb steps failed: {failed}")
+    one_card = [r for r in records if "note" in r]     # the dp_only steps
+    if len(one_card) != 2 or any(r["verdict"] != "REFUTED" for r in one_card):
+        raise RuntimeError(f"dp_only changed a term on one card: {one_card}")
+    # every train step launches ssd_scan in each layer's forward and its
+    # recompute, in each microbatch; each run makes 1 + calls steps
+    want: dict = {}
+    for r in records:
+        if r["shape"] != "train_4k":
+            continue
+        if r["kernels"]["ssd_scan"] != 2 * r["n_layers"] * r["microbatches"]:
+            raise RuntimeError(f"{r['arch']} {r['step']}: ssd_scan launched "
+                               f"{r['kernels']['ssd_scan']} times, not 2 x "
+                               f"{r['n_layers']} x {r['microbatches']}")
+        chunk = r["overrides"].get("ssm_chunk", 128)
+        want[chunk] = want.get(chunk, 0) + r["kernels"]["ssd_scan"] * (
+            1 + r["calls"])
+    by_chunk = {int(k): v for k, v in sorted(chunks.items())}
+    if by_chunk != dict(sorted(want.items())) or set(want) != {128, 64, 32}:
+        raise RuntimeError(f"ssd_scan calls by chunk {by_chunk}, expected "
+                           f"{want} at chunks 128, 64 and 32")
+    return {"records": records, "ssd_calls_by_chunk": by_chunk}
+
+
+def drive_dryrun_cells(root: Path) -> dict:
+    """Phase 16 (d): `run_cell` per P16_CELLS and the roofline table."""
+    from repro_torch.analysis import roofline
+    from repro_torch.launch.dryrun import run_cell
+
+    out_dir = root / "build" / "phase16_dryrun"
+    rows = []
+    for arch, shape in P16_CELLS:
+        print(f"=== {arch} x {shape} (16x16: one chip's batch) ===")
+        r = run_cell(arch, shape, False, out_dir=str(out_dir), calls=P16_CALLS)
+        rows.append(r)
+        status = r["status"] + (f" ({r.get('reason')})" if r["status"] == "skipped"
+                                else f" ({r.get('error')})" if r["status"] == "failed"
+                                else "")
+        print(f"  -> {status}")
+    by = {(r["arch"], r["shape"]): r for r in rows}
+    if by[("tinyllama-1.1b", "long_500k")]["status"] != "skipped":
+        raise RuntimeError("tinyllama-1.1b x long_500k was not skipped")
+    bad = [r for (a, s), r in by.items()
+           if (a, s) != ("tinyllama-1.1b", "long_500k") and r["status"] != "ok"]
+    if bad:
+        raise RuntimeError(f"dry-run cells did not run: {bad}")
+    train = by[("tinyllama-1.1b", "train_4k")]
+    if train["kernels"]["flash_attention"] != 2 * 22 * train["microbatches"] \
+            or train["n_layers"] != 22 \
+            or by[("tinyllama-1.1b", "prefill_32k")]["kernels"][
+                "flash_attention"] != 22:
+        raise RuntimeError(f"the dry run's steps launched "
+                           f"{[r.get('kernels') for r in rows]}")
+    path = out_dir / "dryrun_results.json"
+    path.write_text(json.dumps(rows, indent=1))
+    print(roofline.to_markdown(roofline.analyze(str(path))))
+    return {"rows": rows}
+
+
+def drive_phase16(dev, root: Path) -> dict:
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    try:
+        mc = drive_mesh_and_collectives(dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"one-rank NCCL DeviceMesh {json.dumps(mc['mesh'])}: "
+          f"tinyllama-1.1b's {mc['leaves']} leaves placed as DTensors (wq "
+          f"{mc['wq_placements']}) and back, bit for bit; elastic_step 2 -> 1 "
+          f"device: world {mc['world']}, logged {json.dumps(mc['logged'])}, "
+          f"reshard_state bit for bit; {mc['collectives_checked']} collective "
+          f"results on NCCL == gloo, bit for bit")
+    t0 = time.perf_counter()
+    hc = drive_hillclimb()
+    print(f"hillclimb (batch 1, {P16_HILLCLIMB_LAYERS} layers): "
+          f"{len(hc['records'])} records, ssd_scan "
+          f"calls by chunk {json.dumps(hc['ssd_calls_by_chunk'])}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dr = drive_dryrun_cells(root)
+    print(f"dry-run cells: {time.perf_counter() - t0:.1f} s")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 16 wall {wall:.1f} s")
+    return {"mesh": mc, "hillclimb": hc, "dryrun": dr, "wall_s": wall}
+
+
+def phase16_record(p16: dict, kernel: str) -> dict:
+    """A kernel's phase-16 launches: by dry-run cell and by hillclimb step
+    (one step of each)."""
+    out = {"dryrun": {f"{r['arch']} x {r['shape']}": r["kernels"][kernel]
+                      for r in p16["dryrun"]["rows"] if r["status"] == "ok"},
+           "hillclimb": {f"{r['arch']} x {r['shape']} {r['step']}":
+                         r["kernels"][kernel]
+                         for r in p16["hillclimb"]["records"]}}
+    if kernel == "ssd_scan":
+        out["hillclimb_calls_by_chunk"] = p16["hillclimb"]["ssd_calls_by_chunk"]
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3496,6 +3730,9 @@ def main() -> int:
     p15 = drive_phase15(dev, root, rate, duration, (gpu_cl, gpu_sum, gpu_s),
                         scen, shard)
 
+    # -- 16. sharding, collectives, meshes, the dry run and the hillclimb ------
+    p16 = drive_phase16(dev, root)
+
     record = {"kernels": []}
     for name, src, replaces in (
             ("dom_admit", "src/repro_torch/kernels/csrc/dom_admit.cu",
@@ -3589,7 +3826,8 @@ def main() -> int:
             "shape", "route", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "tflops")}
             for r in p15["small_heads"]],
-        "small_head_paths": p15["small_head_paths"]})
+        "small_head_paths": p15["small_head_paths"],
+        "phase16": phase16_record(p16, "flash_attention")})
     r = ssd_main["bfloat16"]
     ssd_keys = ("max_abs_err", "state_max_abs_err", "ms", "graph_ms",
                 "plain_ms", "bound_ms", "bound_by")
@@ -3607,7 +3845,8 @@ def main() -> int:
         "prefill_32k": {k: ssd_32k[k] for k in ssd_keys},
         "families": {name: r["launches"]["ssd_scan"]
                      for name, r in families.items()},
-        "training": training_record(training, "ssd_scan")})
+        "training": training_record(training, "ssd_scan"),
+        "phase16": phase16_record(p16, "ssd_scan")})
     record["kernels"].append({
         "name": "inchash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/inchash.cu",

@@ -35,7 +35,9 @@ The plain version is the dense O(S Sk) computation of the same function
 tensor's device: a CPU tensor takes the plain version, a CUDA tensor
 launches a kernel (or raises). When the call needs gradients, the launch
 goes through `_FlashAttentionFn`, whose backward is the plain version's;
-otherwise the kernel is launched directly.
+otherwise the kernel is launched directly. While a step is recorded
+(`repro_torch.kernels.record`) a fake CPU tensor takes the CUDA route,
+and the launch is recorded as one op.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, record
 from repro_torch.kernels.grad import needs_grad, plain_grads
 
 NEG_INF = -1e30
@@ -140,7 +142,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``scalar`` (to compare the two on bf16; see `kernel_route`)."""
     global launches, launches_tensor_core, launches_scalar
     _check(q, k, v)
-    if q.device.type != "cuda":
+    on_card = q.device.type == "cuda"
+    if not on_card and not record.recording():
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
@@ -150,14 +153,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, "
                          f"not {D}")
+    B, S, Hq, _ = q.shape
+    _, Sk, Hk, _ = k.shape
+    if not on_card:
+        return record.launch(
+            "flash_attention", flash_attention_plain, (q, k, v),
+            dict(causal=causal, window=window, q_offset=q_offset),
+            flops=attention_flops(B, S, Sk, Hq, D, causal=causal,
+                                  window=window, q_offset=q_offset),
+            nbytes=q.element_size() * D * (2 * B * S * Hq + 2 * B * Sk * Hk))
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs contiguous, 16-byte "
                          "aligned q, k, v")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, not {window}")
-    B, S, Hq, _ = q.shape
-    _, Sk, Hk, _ = k.shape
     out = torch.empty_like(q)
     if B * S * Hq == 0:
         return out
@@ -226,7 +236,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     directly."""
     _check(q, k, v)
     masks = dict(causal=causal, window=window, q_offset=q_offset)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not record.recording():
         return flash_attention_plain(q, k, v, **masks)
     if needs_grad(q, k, v):
         return flash_attention_autograd(q, k, v, **masks)

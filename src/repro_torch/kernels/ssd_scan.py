@@ -26,7 +26,9 @@ The plain version follows the reference's chunked arithmetic
 (`repro/models/ssm.py::ssd_chunked` without D). The wrapper dispatches on
 the tensors' device: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernels (or raises) -- through `_SsdScanFn`, whose backward
-is the plain version's, when the call needs gradients.
+is the plain version's, when the call needs gradients. While a step is
+recorded (`repro_torch.kernels.record`) a fake CPU tensor takes the CUDA
+route, and the launch is recorded as one op.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, record
 from repro_torch.kernels.grad import needs_grad, plain_grads
 
 NEG_INF = -1e30
@@ -113,7 +115,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns (y [b, S, H, P] in x's dtype, h [b, H, N, P] float32)."""
     global launches
     _check(x, dt, A, B, C, chunk)
-    if x.device.type != "cuda":
+    on_card = x.device.type == "cuda"
+    if not on_card and not record.recording():
         raise ValueError("ssd_scan_cuda needs CUDA tensors")
     for name, t in (("x", x), ("dt", dt), ("B", B), ("C", C)):
         if t.dtype not in DTYPES:
@@ -133,6 +136,13 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             and B.stride(2) == 1 and C.stride(2) == 1):
         raise ValueError("ssd_scan_cuda needs x's [H, P] block, dt's last "
                          "axis and B's and C's last axis contiguous")
+    if not on_card:
+        return record.launch(
+            "ssd_scan", ssd_scan_plain, (x, dt, A, B, C), {"chunk": chunk},
+            flops=ssd_scan_flops(b, S, H, P, N, chunk),
+            nbytes=ssd_scan_bytes(b, S, H, P, N, x_size=x.element_size(),
+                                  bc_size=B.element_size(),
+                                  dt_size=dt.element_size()))
     y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
     if b * H * P == 0:
@@ -198,7 +208,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     directly. Returns (y [b, S, H, P] in x's dtype, h [b, H, N, P]
     float32)."""
     _check(x, dt, A, B, C, chunk)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not record.recording():
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     if needs_grad(x, dt, A, B, C):
         return ssd_scan_autograd(x, dt, A, B, C, chunk=chunk)

@@ -71,11 +71,14 @@ def moe_ffn(x2d: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
 
     # Load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / (T * k)
+    flat_e = top_e.reshape(-1)                                  # [T k]
+    # a bincount whose length is E whatever the data (no dynamic shape)
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = counts.float() / (T * k)
     aux = E * torch.sum(me * ce)
 
     # ---- dispatch: sort assignments by expert (stable: token order) -------
-    flat_e = top_e.reshape(-1)                                  # [T k]
     sorted_e, sort_idx = torch.sort(flat_e, stable=True)
     seg_start = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[sorted_e]

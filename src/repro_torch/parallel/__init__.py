@@ -1,10 +1,14 @@
-"""Port of `repro/parallel`: so far only the int8 gradient compression of
-`collectives.py`; the sharding rules and the other collectives are not
-ported yet."""
-from repro_torch.parallel.collectives import (
-    int8_compress_decompress,
-    int8_dequantize,
-    int8_quantize,
+"""Distribution layer: mesh axes, per-architecture sharding rules, and
+distributed-optimization collectives (deadline-ordered gradient
+aggregation, compressed all-reduce) over `torch.distributed`.
+
+Port of `repro/parallel`."""
+from repro_torch.parallel.sharding import (
+    batch_spec,
+    cache_shardings,
+    param_shardings,
+    DATA_AXES,
+    MODEL_AXIS,
 )
 
-__all__ = ["int8_quantize", "int8_dequantize", "int8_compress_decompress"]
+__all__ = ["batch_spec", "cache_shardings", "param_shardings", "DATA_AXES", "MODEL_AXIS"]

@@ -1434,3 +1434,92 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(dev, arch,
             assert torch.isfinite(a).all()
             err = float((a.cpu() - b).abs().max())
             assert err <= tol * float(b.abs().max()) + 1e-12
+
+
+@pytest.fixture
+def card_mesh(dev):
+    """`make_host_mesh()` on the card: a one-rank NCCL group (gloo beside
+    it for CPU tensors), ended after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert not dist.is_initialized()
+    mesh = make_host_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _leaves_equal(placed, params):
+    if isinstance(params, dict):
+        for k in params:
+            _leaves_equal(placed[k], params[k])
+        return
+    local = placed.to_local()
+    assert local.device == params.device and local.dtype == params.dtype
+    assert torch.equal(local.view(torch.uint8), params.view(torch.uint8))
+
+
+def test_one_rank_device_mesh_places_and_reshards_on_the_card(card_mesh):
+    """The sharding rules' specs as DTensor placements on the (1, 1) NCCL
+    mesh, and `elastic_step` from a 2-device world to the one card: every
+    leaf comes back bit for bit."""
+    from repro_torch.ckpt.replicated_log import ReplicatedMetadataLog
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.elastic import WorldState, elastic_step, reshard_state
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel.sharding import distribute, param_shardings
+
+    assert tuple(card_mesh.mesh.shape) == (1, 1)
+    assert card_mesh.device_type == "cuda"
+    params = init_params(smoke_config("tinyllama-1.1b"), 0, device="cuda")
+    placed = distribute(params, param_shardings(params, card_mesh))
+    _leaves_equal(placed, params)
+    log = ReplicatedMetadataLog()
+    world, mesh = elastic_step(WorldState(2, (2, 1)), [0], log=log)
+    assert (world.n_devices, world.mesh_shape, world.generation) == (1, (1, 1),
+                                                                    1)
+    assert log.current_scaling() == {"step": 1, "n_healthy": 1, "mesh": [1, 1]}
+    _leaves_equal(reshard_state(placed, mesh), params)
+
+
+def test_collectives_on_nccl_at_world_size_one_equal_the_cpu(card_mesh):
+    """Each collective on a CUDA tensor (NCCL) equals the same call on its
+    CPU copy (gloo), bit for bit."""
+    from repro_torch.parallel import collectives as c
+
+    gen = torch.Generator().manual_seed(0)
+    grads = {"a": torch.randn(64, 33, generator=gen),
+             "b": (torch.randn(7, generator=gen) * 1e3,)}
+    on_card = {"a": grads["a"].cuda(), "b": (grads["b"][0].cuda(),)}
+    for mask in (1, 0):
+        want = c.deadline_masked_mean(grads, torch.tensor(mask))
+        got = c.deadline_masked_mean(on_card, torch.tensor(mask).cuda())
+        assert torch.equal(got["a"].cpu(), want["a"])
+        assert torch.equal(got["b"][0].cpu(), want["b"][0])
+    x = torch.randn(1000, generator=gen)
+    assert torch.equal(c.compressed_allreduce(x.cuda()).cpu(),
+                       c.compressed_allreduce(x))
+
+
+@pytest.mark.parametrize("arch,shape,kernel,launches", [
+    ("tinyllama-1.1b", "train_4k", "flash_attention", 4),
+    ("tinyllama-1.1b", "prefill_32k", "flash_attention", 2),
+    ("tinyllama-1.1b", "decode_32k", "flash_attention", 0),
+    ("mamba2-130m", "long_500k", "ssd_scan", 0)])
+def test_run_cell_on_the_card_at_smoke_size(dev, monkeypatch, arch, shape,
+                                            kernel, launches):
+    """`run_cell` at smoke size (two layers), one sequence: the step runs
+    on the card, is timed, and launches its kernel once a layer (train:
+    the forward and its recompute)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(dryrun, "get_config", smoke_config)
+    r = dryrun.run_cell(arch, shape, False, batch=1, calls=2, verbose=False)
+    assert r["status"] == "ok", r.get("traceback") or r.get("reason")
+    assert r["kernels"][kernel] == launches
+    assert r["step_s"] > 0 and r["peak_bytes"] > 0 and r["calls"] == 2
+    assert r["device"]["name"] == torch.cuda.get_device_name(0) or \
+        r["device"]["name"].startswith("NVIDIA")
+    assert r["flops"] > 0 and r["n_layers"] == 2 and r["batch"] == 1

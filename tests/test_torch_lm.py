@@ -276,6 +276,50 @@ def test_other_dense_configs_match_the_reference_in_f32(name, f32_compute):
         np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_float8_kv_cache_decode_matches_the_reference(compute, monkeypatch):
+    """qwen2-7b's smoke config with ``kv_dtype="float8_e4m3fn"`` (the
+    hillclimb's last qwen2-7b step): the cache is float8 on both sides and
+    the decode logits agree within the compute type's tolerance. In
+    float32 the cache is bit for bit the reference's; in bf16 the two
+    packages' bf16 K/V differ in their last bits, which moves an entry
+    across a float8 rounding boundary here and there (at most 5 % of the
+    entries differ, each within the bf16 tolerance plus one float8 step)."""
+    if compute == "float32":
+        for mod, val in ((jl, jnp.float32), (jm, jnp.float32),
+                         (tl, torch.float32), (tm, torch.float32)):
+            monkeypatch.setattr(mod, "CDT", val)
+    kw = {"kv_dtype": "float8_e4m3fn"}
+    cfg_j, cfg_t = j_smoke_config("qwen2-7b", **kw), smoke_config("qwen2-7b",
+                                                                   **kw)
+    pj = jm.init_params(cfg_j, jax.random.PRNGKey(0))
+    pt = tm.params_from_reference(jax.tree.map(np.asarray, pj), device="cpu")
+    B, Smax, steps = 3, 24, 6
+    tokens = _tokens(cfg_j, (B, steps), seed=2)
+    cj = jm.zero_cache(cfg_j, B, Smax)
+    ct = tm.zero_cache(cfg_t, B, Smax, device="cpu")
+    assert ct["kv"][0].dtype == torch.float8_e4m3fn
+    assert str(cj["kv"][0].dtype) == "float8_e4m3fn"
+    step_j = jax.jit(jm.make_decode_step(cfg_j))
+    step_t = tm.make_decode_step(cfg_t)
+    for i in range(steps):
+        lj, cj = step_j(pj, cj, jnp.asarray(tokens[:, i:i + 1]), jnp.int32(i))
+        lt, ct = step_t(pt, ct, torch.as_tensor(tokens[:, i:i + 1]), i)
+        tol = F32_TOL if compute == "float32" else bf16_tol(lj)
+        np.testing.assert_allclose(_np(lt), _np(lj), rtol=0, atol=tol)
+    for a, b in zip(cj["kv"], ct["kv"]):
+        a, b = _np(a), _np(b)
+        assert not np.any(b[:, :, steps:])
+        if compute == "float32":
+            assert a.tobytes() == b.tobytes()
+            continue
+        assert (a != b).mean() <= 0.05
+        # each side rounds to float8 within half a step of its value
+        big = np.maximum(np.maximum(np.abs(a), np.abs(b)), 2.0 ** -6)
+        step = 2.0 ** (np.floor(np.log2(big)) - 3)      # 3 mantissa bits
+        assert np.all(np.abs(a - b) <= bf16_tol(a) + step)
+
+
 def test_prefill_last_logits_equal_the_decode_logits(setup, f32_compute):
     """The two paths of the model agree on one sequence: prefill's last
     position and the decode step that feeds the last token."""

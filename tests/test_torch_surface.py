@@ -5,10 +5,11 @@ port -- as an attribute or as a submodule.
 
 Exempt: the compute tiers (``TIERS``, ``make_tier``, ``*Tier``: the port's
 "tiers" are devices), the ``*_pallas`` / ``*_jnp`` / ``*_traced`` names
-(JAX forms whose torch counterparts carry other names), the names the
-port replaced by design (``REPLACED``, each with its reason), and the
-names of the modules ROADMAP.md still queues, each under its label there
-(B9: `parallel/` and the launch tools)."""
+(JAX forms whose torch counterparts carry other names) and the names the
+port replaced by design (``REPLACED``, each with its reason).
+
+Every module of `repro` has a file at the same path in the port, or an
+entry in ``REPLACED_MODULES`` with its reason."""
 import ast
 import importlib
 import importlib.util
@@ -34,15 +35,13 @@ REPLACED = {
     "repro.core.engine": ("the fused stages", {
         "StampStage", "DomStage", "CommitStage", "DEFAULT_STAGES"}),
 }
-QUEUED = {
-    # ROADMAP B9: the sharding rules and the other collectives
-    "repro.parallel": ("B9", {
-        "batch_spec", "cache_shardings", "param_shardings", "DATA_AXES",
-        "MODEL_AXIS"}),
-    "repro.parallel.collectives": ("B9", {
-        "deadline_masked_mean", "StragglerState", "straggler_init",
-        "apply_straggler_feedback", "compressed_allreduce",
-        "CompressionState", "compression_init", "compress_with_feedback"}),
+REPLACED_MODULES = {
+    # torch has no HLO: the port counts the aten ops a step dispatches
+    # under FakeTensorMode (`repro_torch/analysis/ops.py`)
+    "analysis/hlo.py": "analysis/ops.py",
+    # the reference's linter scans all of src/, the port included
+    # (tests/test_lint.py), so the port needs no copy of it
+    "analysis/lint/": None,
 }
 
 
@@ -87,31 +86,47 @@ def test_the_surface_has_modules_to_check():
     assert {"repro.models", "repro.serving", "repro.core", "repro.sim",
             "repro.train", "repro.ckpt", "repro.data",
             "repro.parallel.collectives", "repro.core.sharded",
-            "repro.sim.workload"} <= names
+            "repro.sim.workload", "repro.parallel.sharding",
+            "repro.configs.shapes", "repro.launch.mesh",
+            "repro.launch.elastic"} <= names
 
 
 @pytest.mark.parametrize("name,names", PAIRS, ids=[n for n, _ in PAIRS])
 def test_port_exports_the_references_names(name, names):
     port_name = "repro_torch" + name[len("repro"):]
     port = importlib.import_module(port_name)
-    exempt = QUEUED.get(name, ("", set()))[1] | REPLACED.get(
-        name, ("", set()))[1]
+    exempt = REPLACED.get(name, ("", set()))[1]
     missing = [n for n in names if not EXEMPT_RE.search(n)
                and n not in exempt and not _has(port, port_name, n)]
     assert not missing, f"{port_name} lacks {missing}"
 
 
-@pytest.mark.parametrize("name", sorted(QUEUED))
-def test_queued_names_are_the_references_and_still_missing(name):
-    """Each queued name is in the reference's ``__all__`` and not yet in
-    the port: when a slice ports one, it leaves this list."""
-    label, queued = QUEUED[name]
-    assert label == "B9"
-    names = dict(PAIRS)[name]
-    assert queued <= set(names)
-    port_name = "repro_torch" + name[len("repro"):]
-    port = importlib.import_module(port_name)
-    assert not [n for n in queued if _has(port, port_name, n)]
+REFERENCE_MODULES = sorted(
+    p.relative_to(SRC / "repro").as_posix()
+    for p in (SRC / "repro").rglob("*.py"))
+
+
+def _replacement(rel: str):
+    """(replaced?, the port's file or None) of a reference module."""
+    for key, port in REPLACED_MODULES.items():
+        if rel == key or (key.endswith("/") and rel.startswith(key)):
+            return True, port
+    return False, None
+
+
+@pytest.mark.parametrize("rel", REFERENCE_MODULES)
+def test_every_reference_module_has_a_counterpart(rel):
+    """Each `src/repro/**.py` has a file at the same path under
+    `src/repro_torch/`, or is replaced by design (``REPLACED_MODULES``:
+    what replaces it, if anything, exists and the copy does not)."""
+    replaced, port = _replacement(rel)
+    if not replaced:
+        assert (SRC / "repro_torch" / rel).is_file(), \
+            f"src/repro/{rel} has no counterpart in src/repro_torch/"
+        return
+    assert not (SRC / "repro_torch" / rel).exists()
+    if port is not None:
+        assert (SRC / "repro_torch" / port).is_file()
 
 
 @pytest.mark.parametrize("name", sorted(REPLACED))
