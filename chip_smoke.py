@@ -1487,27 +1487,28 @@ def first_difference(a, b, where: str = ""):
 def dispatch_probe():
     """Record (lanes, padded lanes) of every epoch-body dispatch, that is of
     every epoch with requests, whether single or inside a K-epoch window
-    (a batched dispatch of G groups: its most lanes)."""
-    from repro_torch.core.engine import DomEngine
+    (a batched dispatch of G groups: its most lanes), from the engine's
+    own per-dispatch records (`repro_torch.core.spans`, under
+    `recording()`, from a reset tracer). The list fills when the block
+    ends; `retry_counts` then reads the block's client re-issues."""
+    from repro_torch.core import spans
 
-    lanes = []
-    make_body = DomEngine._body
-
-    def probed(self, use_kcls, use_cap):
-        body = make_body(self, use_kcls, use_cap)
-
-        def run(*args, **kw):
-            # args[11]: the valid lanes of each group; args[3]: t [G, n_pad]
-            lanes.append((max(int(n) for n in args[11]),
-                          int(args[3].shape[-1])))
-            return body(*args, **kw)
-        return run
-
-    DomEngine._body = probed
+    lanes: list = []
+    spans.reset()
     try:
-        yield lanes
+        with spans.recording():
+            yield lanes
     finally:
-        DomEngine._body = make_body
+        lanes.extend(spans.snapshot()["dispatches"])
+
+
+def retry_counts() -> dict:
+    """The client re-issues by attempt (``retry_gen_<k>``) and the
+    abandonments (``given_up``) of the last `dispatch_probe` block."""
+    from repro_torch.core import spans
+
+    return {k: n for k, n in sorted(spans.snapshot()["counts"].items())
+            if k.startswith("retry_gen_") or k == "given_up"}
 
 
 def dom_counts() -> dict:
@@ -1552,7 +1553,7 @@ def run_scenario_traced(scenario, device: str, config=None) -> dict:
                 f"{json.dumps(by_route)} for {len(lanes)} epochs with "
                 f"requests (want {want})")
     return {"res": res, "trace": trace, "wall": wall, "counts": counts,
-            "dispatches": len(lanes),
+            "dispatches": len(lanes), "retries": retry_counts(),
             "max_lanes": max((n for n, _ in lanes), default=0),
             "max_padded": max((p for _, p in lanes), default=0)}
 
@@ -1585,9 +1586,13 @@ def same_runs(a: dict, b: dict, what: str) -> None:
 
 
 def card_equals_cpu(card: dict, cpu: dict) -> None:
-    """Card run == CPU run, bit for bit (`same_runs`), on their tiers."""
+    """Card run == CPU run, bit for bit (`same_runs`, and the client
+    re-issues by attempt), on their tiers."""
     name = card["res"].scenario
     same_runs(card, cpu, "the card and the CPU")
+    if card["retries"] != cpu["retries"]:
+        raise RuntimeError(f"{name}: retries {card['retries']} on the card, "
+                           f"{cpu['retries']} on the CPU")
     if card["res"].tier != "torch-cuda" or cpu["res"].tier != "torch-cpu":
         raise RuntimeError(f"{name}: tiers {card['res'].tier}, "
                            f"{cpu['res'].tier}")
@@ -1602,7 +1607,8 @@ def scenario_line(card: dict, cpu: dict) -> str:
             f"{r.recovered_entries}, faults applied {r.applied_faults} "
             f"skipped {r.skipped_faults}, findings {len(findings(card['trace']))}"
             f", {card['dispatches']} epochs with requests (most lanes "
-            f"{card['max_lanes']}, bucket {card['max_padded']}), dom_admit "
+            f"{card['max_lanes']}, bucket {card['max_padded']}), retries "
+            f"{json.dumps(card['retries'])}, dom_admit "
             f"{json.dumps(card['counts']['dom_admit'])} dom_release "
             f"{json.dumps(card['counts']['dom_release'])}, wall card "
             f"{card['wall']:.3f} s, CPU {cpu['wall']:.3f} s")

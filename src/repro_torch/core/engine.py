@@ -46,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.clocksync import ClockSyncDaemon, estimate_offsets
 from repro_torch.core.quorum import fast_quorum_size, slow_quorum_size
 from repro_torch.core.recovery import (
@@ -137,13 +138,14 @@ class PendingBuffer:
 
     def pop_due(self, horizon: float) -> np.ndarray:
         """Remove and return all entries with t <= horizon, time-sorted."""
-        view = self._buf[: self._n]
-        due_mask = view["t"] <= horizon
-        if not due_mask.any():
-            return np.empty(0, dtype=PENDING_DTYPE)
-        due = np.sort(view[due_mask], order="t", kind="stable")
-        self._keep(~due_mask)
-        return due
+        with spans.span("pop_due"):
+            view = self._buf[: self._n]
+            due_mask = view["t"] <= horizon
+            if not due_mask.any():
+                return np.empty(0, dtype=PENDING_DTYPE)
+            due = np.sort(view[due_mask], order="t", kind="stable")
+            self._keep(~due_mask)
+            return due
 
     def _keep(self, keep_mask: np.ndarray) -> None:
         rest = self._buf[: self._n][keep_mask].copy()
@@ -658,6 +660,10 @@ class SampleStage(Stage):
     name = "sample"
 
     def run(self, s, eng):
+        with spans.span("sample"):
+            self._sample(s, eng)
+
+    def _sample(self, s, eng):
         cfg = eng.cfg
         n = eng.n
         N = s.t.size
@@ -781,6 +787,10 @@ class FusedEpochStage(Stage):
     name = "fused"
 
     def run(self, s, eng):
+        with spans.span("dispatch", device=True):
+            self._dispatch(s, eng)
+
+    def _dispatch(self, s, eng):
         cfg = eng.cfg
         N = s.t.size
         R = eng.n
@@ -866,13 +876,15 @@ class DeliverStage(Stage):
     name = "deliver"
 
     def run(self, s, eng):
-        s.commit_at_client = s.commit_time + s.p2c
-        # Latency is measured from the ORIGINAL submission (t0): a retried
-        # request's earlier timed-out attempts are part of its latency.
-        lat = s.commit_at_client - s.t0
-        lat[~s.committed] = np.inf
-        s.latency = lat
-        s.delivered = s.committed & np.isfinite(lat)
+        with spans.span("deliver_log"):
+            s.commit_at_client = s.commit_time + s.p2c
+            # Latency is measured from the ORIGINAL submission (t0): a
+            # retried request's earlier timed-out attempts are part of its
+            # latency.
+            lat = s.commit_at_client - s.t0
+            lat[~s.committed] = np.inf
+            s.latency = lat
+            s.delivered = s.committed & np.isfinite(lat)
 
 
 class LogStage(Stage):
@@ -888,9 +900,10 @@ class LogStage(Stage):
     name = "log"
 
     def run(self, s, eng):
-        eng.logs.observe_epoch(
-            s, reachable=(~eng.unreachable if eng.unreachable.any()
-                          else None))
+        with spans.span("deliver_log"):
+            eng.logs.observe_epoch(
+                s, reachable=(~eng.unreachable if eng.unreachable.any()
+                              else None))
 
 
 # The stages `DomEngine` runs, in order (the reference's fused pipeline;
@@ -1501,6 +1514,7 @@ class DomEngine:
         `_build_epoch_body`) back as numpy in one transfer."""
         sc = self._scalars()
         body = self._body(use_kcls, sc["cap"] > 0.0)
+        spans.body_dispatch(n_valid, t.shape[-1])
         up = self._upload
         kw = {k: (up(v) if isinstance(v, np.ndarray) else v)
               for k, v in fault_kw.items()}
@@ -1558,6 +1572,25 @@ class DomEngine:
         live = [i for i, s in enumerate(states) if s is not None]
         if not live:
             return states
+        with spans.span("dispatch", device=True):
+            self._window_dispatch(states, live, alive, leader, release_floor,
+                                  commutative)
+        for i in live:
+            s = states[i]
+            deliver.run(s, self)
+            log.run(s, self)
+            if self.sanitizer is not None:
+                self.sanitizer.check_epoch(s, self)
+        return states
+
+    def _window_dispatch(self, states, live, alive, leader, release_floor,
+                         commutative) -> None:
+        """The device half of a window: stacked operands up, the body once
+        an epoch with requests (the ring carry kept on the device), the
+        outputs back in one pull and into each epoch's state, and the host
+        pool mirror advanced in epoch order (bit-identical to the device
+        fold by construction)."""
+        K = len(states)
         R = self.n
         n_pad = max(_pow2_bucket(states[i].t.size) for i in live)
         # Stacked [K, n_pad(, R)] operands, one shared bucket across the
@@ -1595,6 +1628,7 @@ class DomEngine:
                 kcls_d[i:i + 1], [leader], [states[i].t.size], **sc,
                 floor=[release_floor])
             outs.append(out)
+            spans.body_dispatch((states[i].t.size,), n_pad)
         ys = _pull([torch.cat(col) for col in zip(*outs)])
         for j, i in enumerate(live):
             s = states[i]
@@ -1602,17 +1636,11 @@ class DomEngine:
             (s.stamp, s.deadlines, s.arrivals, s.admitted, s.release,
              s.commit_time, s.fast, s.committed, s.exec_order) = \
                 [y[j][:N] for y in ys]
-            # advance the host pool mirror in epoch order; bit-identical to
-            # the device fold by construction
+            # the host pool mirror advances in epoch order
             s.bound = self.update_bound(self.observed_owd_samples(s))
             rep = s.reply_owd.copy()
             rep[:, ~alive] = np.inf
             s.reply_owd = rep
-            deliver.run(s, self)
-            log.run(s, self)
-            if self.sanitizer is not None:
-                self.sanitizer.check_epoch(s, self)
-        return states
 
 
 __all__ = [

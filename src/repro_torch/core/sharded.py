@@ -41,6 +41,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.cluster import Cluster, summarize_commits
 from repro_torch.core.engine import (
     DeliverStage,
@@ -404,13 +405,8 @@ class ShardedNezhaCluster(Cluster):
         lane (no host rng draws, no bound update, outputs discarded)."""
         cfg = self.cfg
         commutative = bool(getattr(cfg, "commutative", False))
-        states, pools, ptrs, cnts = [], [], [], []
+        states = []
         for grp, due, leader in zip(groups, dues, leaders):
-            eng = grp.engine
-            pool, ptr, cnt = eng.device_pool_state()
-            pools.append(pool)
-            ptrs.append(ptr)
-            cnts.append(cnt)
             if due.size == 0:
                 states.append(None)     # padding lane: no rng, no bound
                 continue
@@ -425,48 +421,13 @@ class ShardedNezhaCluster(Cluster):
                 leader=int(leader),
                 release_floor=float(grp._release_floor),
             )
-            sample = next(st for st in eng.stages
+            sample = next(st for st in grp.engine.stages
                           if isinstance(st, SampleStage))
-            sample.run(s, eng)
-            s.bound = eng.update_bound(eng.observed_owd_samples(s))
+            sample.run(s, grp.engine)
             states.append(s)
-        Ga = len(groups)
-        R = self.n
-        n_pad = max(_pow2_bucket(s.t.size)
-                    for s in states if s is not None)
-        t = np.full((Ga, n_pad), np.inf)
-        c2p = np.zeros((Ga, n_pad))
-        owd = np.zeros((Ga, n_pad, R))
-        drop = np.ones((Ga, n_pad, R), dtype=bool)
-        reply = np.full((Ga, n_pad, R), np.inf)
-        kcls = np.full((Ga, n_pad), -1, np.int64)
-        alive = np.zeros((Ga, R), dtype=bool)
-        lead = np.asarray(leaders, np.int64)
-        n_valid = np.zeros(Ga, np.int64)
-        floor = np.zeros(Ga)
-        for i, s in enumerate(states):
-            alive[i] = groups[i]._alive
-            if s is None:
-                continue
-            N = s.t.size
-            t[i, :N] = s.t
-            c2p[i, :N] = s.c2p
-            owd[i, :N] = s.owd_pr
-            drop[i, :N] = s.drop_pr
-            rep = s.reply_owd.copy()
-            rep[:, ~s.alive] = np.inf
-            reply[i, :N] = s.reply_owd
-            s.reply_owd = rep
-            if s.kcls is not None:
-                kcls[i, :N] = s.kcls
-            n_valid[i] = N
-            floor[i] = s.release_floor
-        # the config scalars (the margin too: no group here runs a modeled
-        # sync loop) are group 0's, shared by every group
-        out = groups[0].engine.step(
-            np.stack(pools), np.asarray(ptrs), np.asarray(cnts), t, c2p,
-            owd, drop, reply, alive, kcls, lead, n_valid,
-            use_kcls=commutative, release_floor=floor)
+        with spans.span("dispatch", device=True):
+            out = self._batched_dispatch(groups, states, leaders,
+                                         commutative)
         for i, (grp, s) in enumerate(zip(groups, states)):
             if s is None:
                 continue
@@ -483,6 +444,55 @@ class ShardedNezhaCluster(Cluster):
             if eng.sanitizer is not None:
                 eng.sanitizer.check_epoch(s, eng)
         return states
+
+    def _batched_dispatch(self, groups, states, leaders,
+                          commutative: bool) -> list:
+        """The device half of a batched epoch: stacked pow2-padded operands
+        (each group's PRE-fold pool ring; its host pool mirror advances
+        here, which sampling neither reads nor draws from) and one
+        `DomEngine.step` over the G groups."""
+        Ga = len(groups)
+        R = self.n
+        n_pad = max(_pow2_bucket(s.t.size)
+                    for s in states if s is not None)
+        pools = np.empty((Ga, groups[0].engine.cfg.dom.window * R))
+        ptrs = np.zeros(Ga, np.int64)
+        cnts = np.zeros(Ga, np.int64)
+        t = np.full((Ga, n_pad), np.inf)
+        c2p = np.zeros((Ga, n_pad))
+        owd = np.zeros((Ga, n_pad, R))
+        drop = np.ones((Ga, n_pad, R), dtype=bool)
+        reply = np.full((Ga, n_pad, R), np.inf)
+        kcls = np.full((Ga, n_pad), -1, np.int64)
+        alive = np.zeros((Ga, R), dtype=bool)
+        lead = np.asarray(leaders, np.int64)
+        n_valid = np.zeros(Ga, np.int64)
+        floor = np.zeros(Ga)
+        for i, (grp, s) in enumerate(zip(groups, states)):
+            eng = grp.engine
+            pools[i], ptrs[i], cnts[i] = eng.device_pool_state()
+            alive[i] = grp._alive
+            if s is None:
+                continue
+            s.bound = eng.update_bound(eng.observed_owd_samples(s))
+            N = s.t.size
+            t[i, :N] = s.t
+            c2p[i, :N] = s.c2p
+            owd[i, :N] = s.owd_pr
+            drop[i, :N] = s.drop_pr
+            rep = s.reply_owd.copy()
+            rep[:, ~s.alive] = np.inf
+            reply[i, :N] = s.reply_owd
+            s.reply_owd = rep
+            if s.kcls is not None:
+                kcls[i, :N] = s.kcls
+            n_valid[i] = N
+            floor[i] = s.release_floor
+        # the config scalars (the margin too: no group here runs a modeled
+        # sync loop) are group 0's, shared by every group
+        return groups[0].engine.step(
+            pools, ptrs, cnts, t, c2p, owd, drop, reply, alive, kcls, lead,
+            n_valid, use_kcls=commutative, release_floor=floor)
 
 
 def make_sharded(cfg: ShardedConfig, **kw) -> ShardedNezhaCluster:

@@ -41,6 +41,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.clock import ClockParams
 from repro_torch.core.cluster import CommonConfig, Cluster, summarize_commits
 from repro_torch.core.dom import DomParams
@@ -534,6 +535,7 @@ class VectorizedNezhaCluster(Cluster):
         """
         vc = self._vc
         t_rec = vc.t_done
+        spans.count("viewchanges_done")
         # Only reachable survivors take part in MERGE-LOG and install the
         # merged log at StartView; a partitioned-away replica stays on its
         # frozen state until the heal lets it catch up.
@@ -604,7 +606,8 @@ class VectorizedNezhaCluster(Cluster):
             self._apply_faults(self._now)
             # _apply_faults consumed every event at or before now, so both
             # candidates are strictly ahead and the loop always advances.
-            self._update_view(self._now)
+            with spans.span("viewchange"):
+                self._update_view(self._now)
             candidates = [horizon, self._now + ep, self._next_fault_time()]
             if self._vc is not None and np.isfinite(self._vc.t_done):
                 candidates.append(self._vc.t_done)
@@ -627,7 +630,8 @@ class VectorizedNezhaCluster(Cluster):
                     if due.size == 0:
                         break
                     self._batches += 1
-                    self._retry(due)
+                    with spans.span("absorb"):
+                        self._retry(due)
                 self.epoch_leaders.append(
                     self._vc.leader if self._vc is not None else -1)
             else:
@@ -636,8 +640,11 @@ class VectorizedNezhaCluster(Cluster):
                     self._run_window(k_window)
                     continue
                 leader = leader_of_view(self._view, self.f)
+                batches = self._batches
                 self._run_epoch_batches(epoch_end, leader,
                                         self._deaths_at(epoch_end))
+                if self._batches > batches:
+                    spans.count("epochs_single")
                 self._last_leader = leader
                 self.epoch_leaders.append(leader)
             if self.engine.unreachable.any():
@@ -703,6 +710,9 @@ class VectorizedNezhaCluster(Cluster):
         dues = [self._pending.pop_due(t) for t in ends]
         states = self.engine.run_window(dues, self._alive, leader,
                                               self._release_floor)
+        if spans.on():
+            spans.count("epochs_window",
+                        sum(s is not None for s in states))
         for due, s in zip(dues, states):
             if s is not None:
                 self._absorb_epoch_state(due, s)
@@ -735,11 +745,17 @@ class VectorizedNezhaCluster(Cluster):
         given_up = failed["tries"] > self.cfg.max_retries
         if given_up.any():
             self._latencies.append(np.full(int(given_up.sum()), np.inf))
+            spans.count("given_up", int(given_up.sum()))
             # abandoned requests also leave the speculative logs: a later
             # recovery must not resurrect a request its client gave up on
             self.engine.logs.drop_uids(failed["cid"][given_up],
                                        failed["rid"][given_up])
             failed = failed[~given_up]
+        if spans.on():
+            # re-issues by their attempts so far
+            for k, n in enumerate(np.bincount(failed["tries"])):
+                if n:
+                    spans.count(f"retry_gen_{k}", int(n))
         failed["t"] += self.cfg.client_timeout
         self._pending.extend(failed)
 
@@ -749,33 +765,34 @@ class VectorizedNezhaCluster(Cluster):
         fast-path accounting, the commit trace, retries, and closed-loop
         callbacks. Identical order of operations on every path (bit parity).
         """
-        self._batches += 1
-        # stamp audit for check_stamp_bias: per-message (proxy id,
-        # deadline - true stamp instant) = bound (+ bias + clock error);
-        # attempts whose client leg was dropped never got stamped
-        fin = np.isfinite(s.stamp)
-        self._trace_stamps.append(
-            (s.cid[fin] % self.cfg.n_proxies,
-             s.deadlines[fin] - s.stamp[fin]))
-        self._latencies.append(s.latency[s.delivered])
-        self._n_fast += int(np.sum(s.fast & s.delivered))
-        if s.delivered.any():
-            idx = np.flatnonzero(s.delivered)
-            self._trace_commits.append((
-                s.commit_at_client[idx], s.cid[idx], s.rid[idx],
-                (s.fast & s.delivered)[idx], np.zeros(idx.size, bool)))
-        if not s.delivered.all():
-            self._retry(due[~s.delivered])
-        if self.on_commit is not None and s.delivered.any():
-            idx = np.flatnonzero(s.delivered)
-            idx = idx[np.argsort(s.commit_at_client[idx], kind="stable")]
-            t_save = self._now
-            for i in idx:
-                # callbacks observe the commit's client-side time, so a
-                # closed-loop resubmission is stamped when the reply lands
-                self._now = float(s.commit_at_client[i])
-                self.on_commit(int(s.cid[i]), int(s.rid[i]))
-            self._now = t_save
+        with spans.span("absorb"):
+            self._batches += 1
+            # stamp audit for check_stamp_bias: per-message (proxy id,
+            # deadline - true stamp instant) = bound (+ bias + clock error);
+            # attempts whose client leg was dropped never got stamped
+            fin = np.isfinite(s.stamp)
+            self._trace_stamps.append(
+                (s.cid[fin] % self.cfg.n_proxies,
+                 s.deadlines[fin] - s.stamp[fin]))
+            self._latencies.append(s.latency[s.delivered])
+            self._n_fast += int(np.sum(s.fast & s.delivered))
+            if s.delivered.any():
+                idx = np.flatnonzero(s.delivered)
+                self._trace_commits.append((
+                    s.commit_at_client[idx], s.cid[idx], s.rid[idx],
+                    (s.fast & s.delivered)[idx], np.zeros(idx.size, bool)))
+            if not s.delivered.all():
+                self._retry(due[~s.delivered])
+            if self.on_commit is not None and s.delivered.any():
+                idx = np.flatnonzero(s.delivered)
+                idx = idx[np.argsort(s.commit_at_client[idx], kind="stable")]
+                t_save = self._now
+                for i in idx:
+                    # callbacks observe the commit's client-side time, so a
+                    # closed-loop resubmission is stamped when the reply lands
+                    self._now = float(s.commit_at_client[i])
+                    self.on_commit(int(s.cid[i]), int(s.rid[i]))
+                self._now = t_save
 
     def _run_epoch_batches(self, epoch_end: float, leader: int,
                            dies_at: Optional[np.ndarray] = None) -> None:
